@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through five phases, one
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through eight phases, one
 line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -15,12 +15,29 @@ line each, and exits non-zero on any failure:
    S1/S2 within the summation-order bound ``ops.moments.summation_tolerance``.
 4. stage 1 end to end: a synthetic EUROC dataset at bench.py's workload
    (257 scans x 12,000 points), ``pipeline.cli.main(["scanmatch", ...])``
-   in process, once to warm up and once timed; the three CSVs, both
-   kernels' launch counts, ATE < 0.2 m against ground truth.
-5. the last line: {"ok": true, "device": {...}}.
+   in process, once to warm up and once timed; the three CSVs, K1's and
+   K2's launch counts, ATE < 0.2 m against ground truth.
+5. K3 (csrc/nn_sweep.cu, d2 forms vpu / vpu2 / mxu) and K4
+   (csrc/nn_sweep_vals.cu) vs their plain versions at phase 2's shapes:
+   indices equal, d2 bit-equal, K4's q and n equal.
+6. K5 (csrc/nn_pruned.cu) vs its plain version on 4 voxelised scan pairs
+   at capacity 8192, source stride 4, gate 10 m, plus a ragged case: idx
+   equal, d2 bit-equal; within the gate d2 agrees with K1's and the index
+   is K1's wherever that nearest neighbour is unique.
+7. stage 1 under every nn_impl: phase 4's dataset preprocessed once, then
+   ``pipeline.scanmatcher.match_all`` (bench.py's matcher: batch 4, 30
+   iterations, tol 1e-4, gate 10 m, source stride 4) with nn_impl auto
+   (K1), vpu, vpu2, mxu (K3), vpu_tq (K4) and pruned (K5), each with the
+   launch counts set to 0 just before and read just after: relative
+   transforms within 1e-3 m / 1e-3 rad of the K1 run, ATE < 0.2 m, no pair
+   fallen back to its seed, its kernel launched.
+8. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
-nvidia-smi reports them and one JSON line of per-kernel results.
+nvidia-smi reports them and one JSON line of per-kernel results: time,
+plain-version time and the bound (the larger of the bytes the function
+must move over the HBM rate and its FP32 operations over the FP32 peak,
+NVIDIA's H100 SXM data sheet), from this run's inputs.
 """
 
 import json
@@ -36,13 +53,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from lidar_slam_arvc_tpu_torch import cloud as cl  # noqa: E402
+from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
-from lidar_slam_arvc_tpu_torch.ops import _cuda  # noqa: E402
+from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
-    ball_moments, ball_moments_plain, summation_tolerance)
-from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_plain  # noqa: E402
+    ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
+from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
+    _target_aux, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
+from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
+from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils import synthetic  # noqa: E402
+from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate  # noqa: E402
 
 N_SCANS = 257
@@ -51,6 +73,18 @@ WORLD = {"extent": 30.0, "n_ground": 20000, "n_pillars": 40, "pillar_pts": 500}
 VOXEL = 0.2
 CAPACITY = 8192
 RADIUS = 0.5          # normal radius at a 0.2 m voxel: max(0.3, 2.5 * 0.2)
+STRIDE = 4            # bench.py's default source stride
+GATE = 10.0           # bench.py's correspondence gate (m)
+# the K5 d2 against K1's within the gate: the matmul form |t|^2 - 2 s.t
+# cancels terms of ~10^3 at the scans' 25 m range (the reference's own
+# test, tests/test_nn_pruned.py, holds it to the same 1e-3)
+MATMUL_ATOL = 1e-3
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores
+# nn_impl -> the launch-count key (and JSON name) of the kernel it selects
+NN_IMPLS = {"auto": "nn_sweep", "vpu": "nn_sweep_vpu", "vpu2": "nn_sweep_vpu2",
+            "mxu": "nn_sweep_mxu", "vpu_tq": "nn_sweep_vals",
+            "pruned": "nn_pruned"}
 
 
 def fail(msg: str) -> None:
@@ -71,6 +105,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least time in ms, what bounds it) on an H100 SXM at its peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def nvidia_smi() -> str:
@@ -105,20 +150,37 @@ def _cloud_points(rng, B, n, extent=25.0):
     return p
 
 
-def phase_k1(rng, dev):
-    results = {}
-    cases = [("ragged", 4, 77, 131), ("S2048", 4, 2048, 8192),
-             ("S8192", 4, 8192, 8192)]
-    max_err = 0.0
-    for tag, B, S, T in cases:
+def _nn_cases(rng, dev):
+    """Phase 2's and 5's inputs: (tag, src, tgt, mask, normals) on the card,
+    B = 4, ~30% masked targets, 10% duplicated targets (ties), a quarter
+    of the sources on targets."""
+    cases = []
+    for tag, B, S, T in (("ragged", 4, 77, 131), ("S2048", 4, 2048, 8192),
+                         ("S8192", 4, 8192, 8192)):
         src = _cloud_points(rng, B, S)
         tgt = _cloud_points(rng, B, T)
-        # duplicated targets: the lowest index must win the tie
         dup = rng.integers(0, T, T // 10)
         tgt[:, rng.integers(0, T, T // 10)] = tgt[:, dup]
         src[:, : S // 4] = tgt[:, rng.integers(0, T, S // 4)]
         mask = rng.uniform(size=(B, T)) > 0.3
-        s, t, m = (torch.from_numpy(a).to(dev) for a in (src, tgt, mask))
+        nrm = rng.normal(size=(B, T, 3)).astype(np.float32)
+        cases.append((tag, *(torch.from_numpy(a).to(dev)
+                             for a in (src, tgt, mask, nrm))))
+    return cases
+
+
+def _sweep_bound(s, t, m, flops_per_pair, extra_in=(), outs=()):
+    B, S = s.shape[:2]
+    return bound_ms(nbytes(s, t, m, *extra_in, *outs),
+                    B * S * t.shape[1] * flops_per_pair)
+
+
+def phase_k1(cases):
+    results = {}
+    max_err = 0.0
+    for tag, s, t, m, _ in cases:
+        B, S = s.shape[:2]
+        T = t.shape[1]
         i_k, d_k = nn_search(s, t, m)
         i_p, d_p = nn_search_plain(s, t, m)
         torch.cuda.synchronize()
@@ -131,21 +193,26 @@ def phase_k1(rng, dev):
         max_err = max(max_err, float((d_k - d_p).abs().max()))
         reps = 20 if S * T >= 2 ** 24 else 50
         results[tag] = (cuda_ms(lambda: nn_search(s, t, m), reps),
-                        cuda_ms(lambda: nn_search_plain(s, t, m), 5))
+                        cuda_ms(lambda: nn_search_plain(s, t, m), 5),
+                        _sweep_bound(s, t, m, 8, outs=(i_k, d_k)))
     print("phase 2 K1 nn_sweep vs plain: indices equal, d2 bit-equal; "
-          + "; ".join(f"B=4 {tag}: kernel {k:.4f} ms, plain {p:.4f} ms"
-                      for tag, (k, p) in results.items()))
-    return {"max_abs_err": max_err, "ms": results["S8192"][0],
-            "plain_ms": results["S8192"][1], "all": results}
+          + "; ".join(f"B=4 {tag}: kernel {k:.4f} ms, plain {p:.4f} ms, "
+                      f"bound {b[0]:.4f} ms ({b[1]})"
+                      for tag, (k, p, b) in results.items()))
+    # K1's main path is phase 4 (source stride 1): S = T = 8192
+    k, p, (b, by) = results["S8192"]
+    return {"max_abs_err": max_err, "ms": k, "plain_ms": p, "bound_ms": b,
+            "bound_by": by, "all": results}
 
 
-def _voxelised_scans(rng, dev, B):
+def _voxelised_scans(rng, dev, T_poses):
+    """Scans of bench.py's world rendered at the poses T_poses, cropped and
+    voxelised at capacity 8192, as a batched Cloud on the card."""
     world = synthetic.make_world(rng, **WORLD)
-    T = synthetic.make_trajectory(B, radius=12.0)
     raw = []
-    for i in range(B):
+    for T in T_poses:
         raw.append(cl.from_numpy(synthetic.render_scan(
-            world, T[i], rng, max_points=SCAN_POINTS), 65536, device=dev))
+            world, T, rng, max_points=SCAN_POINTS), 65536, device=dev))
     c = cl.Cloud(torch.stack([r.points for r in raw]),
                  torch.stack([r.mask for r in raw]))
     c = cl.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
@@ -154,7 +221,7 @@ def _voxelised_scans(rng, dev, B):
 
 
 def phase_k2(rng, dev):
-    c = _voxelised_scans(rng, dev, 4)
+    c = _voxelised_scans(rng, dev, synthetic.make_trajectory(4, radius=12.0))
     rq = _cloud_points(rng, 2, 1000, extent=2.0)
     rm = rng.uniform(size=(2, 1000)) > 0.3
     ragged = cl.Cloud(torch.from_numpy(rq).to(dev), torch.from_numpy(rm).to(dev))
@@ -176,15 +243,23 @@ def phase_k2(rng, dev):
         max_err = max(max_err, float(e1.max()), float(e2.max()))
         times[tag] = (cuda_ms(lambda: ball_moments(*args, query_mask=cloud.mask), 20),
                       cuda_ms(lambda: ball_moments_plain(*args, query_mask=cloud.mask), 3))
+    # the work this data needs: 8 operations per scored (query, target)
+    # pair, 16 more per neighbour (count, S1, S2)
+    tiles, pairs = scored_pairs(c.points, c.points, c.mask, RADIUS, c.mask)
+    neighbours = float(ck.sum())
+    b, by = bound_ms(nbytes(c.points, c.points, c.mask, c.mask) + ck.numel() * 40,
+                     8.0 * pairs + 16.0 * neighbours)
     n_valid = int(c.mask.sum())
+    n_all = c.mask.shape[0] * -(-c.mask.shape[1] // 128) * -(-c.mask.shape[1] // 256)
     print(f"phase 3 K2 ball_moments vs plain: counts exact, max |S1/S2 diff| "
           f"{max_err:.3g} (within the stated bound); B=4 scans at capacity "
           f"{CAPACITY} ({n_valid} valid points), r={RADIUS}: kernel "
-          f"{times['scans'][0]:.4f} ms, plain {times['scans'][1]:.4f} ms; "
-          f"ragged B=2 Q=T=1000: kernel {times['ragged'][0]:.4f} ms, plain "
-          f"{times['ragged'][1]:.4f} ms")
+          f"{times['scans'][0]:.4f} ms, plain {times['scans'][1]:.4f} ms, "
+          f"bound {b:.4f} ms ({by}; {tiles} of {n_all} tiles scored, "
+          f"{pairs} pairs, {int(neighbours)} neighbours); ragged B=2 Q=T=1000: "
+          f"kernel {times['ragged'][0]:.4f} ms, plain {times['ragged'][1]:.4f} ms")
     return {"max_abs_err": max_err, "ms": times["scans"][0],
-            "plain_ms": times["scans"][1]}
+            "plain_ms": times["scans"][1], "bound_ms": b, "bound_by": by}
 
 
 def _rows(path):
@@ -207,15 +282,15 @@ def phase_stage1(tmp, smi):
     if cli.main(argv) != 0:
         fail("stage 1 timed run returned non-zero")
     launches = dict(_cuda.launch_counts)
-    sm = f"{d}/robot0/scanmatcher"
-    rows = (_rows(f"{sm}/lidar_times.csv"),
-            _rows(f"{sm}/scanmatcher_relative.csv"),
-            _rows(f"{sm}/scanmatcher_global.csv"))
+    smd = f"{d}/robot0/scanmatcher"
+    rows = (_rows(f"{smd}/lidar_times.csv"),
+            _rows(f"{smd}/scanmatcher_relative.csv"),
+            _rows(f"{smd}/scanmatcher_global.csv"))
     if rows != (N_SCANS, N_SCANS - 1, N_SCANS):
         fail(f"stage 1 CSV rows {rows}, expected "
              f"({N_SCANS}, {N_SCANS - 1}, {N_SCANS})")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("nn_sweep", "ball_moments"):
+        if launches[k] <= 0:
             fail(f"stage 1 did not launch kernel {k}")
     euroc = EurocDataset(d)
     _, T_glob = euroc.read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
@@ -236,6 +311,199 @@ def phase_stage1(tmp, smi):
           f"ATE rmse {err['rmse']:.5f} m; launches {launches}; "
           f"{prof['scans_over_capacity']} scans over capacity; dataset "
           f"generated in {gen_s:.1f} s; card {smi}")
+    return launches, d, info["T_gt"]
+
+
+def phase_k3_k4(cases):
+    """K3 in each form and K4 against their plain versions."""
+    out = {}
+    for impl in ("vpu", "vpu2", "mxu"):
+        key = NN_IMPLS[impl]
+        max_err, times = 0.0, {}
+        for tag, s, t, m, _ in cases:
+            i_k, d_k = nn_search(s, t, m, impl)
+            i_p, d_p = nn_search_plain(s, t, m, impl)
+            torch.cuda.synchronize()
+            if not torch.equal(i_k, i_p):
+                fail(f"K3 {impl} {tag}: indices differ in "
+                     f"{int((i_k != i_p).sum())} rows")
+            if not torch.equal(d_k, d_p):
+                fail(f"K3 {impl} {tag}: d2 not bit-equal (max |diff| "
+                     f"{float((d_k - d_p).abs().max())})")
+            max_err = max(max_err, float((d_k - d_p).abs().max()))
+            reps = 20 if s.shape[1] * t.shape[1] >= 2 ** 24 else 50
+            flops = {"vpu": 9, "vpu2": 8, "mxu": 7}[impl]
+            times[tag] = (cuda_ms(lambda: nn_search(s, t, m, impl), reps),
+                          cuda_ms(lambda: nn_search_plain(s, t, m, impl), 5),
+                          _sweep_bound(s, t, m, flops, outs=(i_k, d_k)),
+                          cuda_ms(lambda: _target_aux(t, m, impl), reps))
+        out[key] = times, max_err
+    max_err, times = 0.0, {}
+    for tag, s, t, m, n in cases:
+        got = nn_search_vals(s, t, m, n)
+        ref = nn_search_vals_plain(s, t, m, n)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("d2", "q", "n"), got, ref):
+            if not torch.equal(a, b):
+                fail(f"K4 {tag}: {name} differs from the plain version "
+                     f"(max |diff| {float((a - b).abs().max())})")
+        if not torch.equal(got[0], nn_search(s, t, m)[1]):
+            fail(f"K4 {tag}: d2 differs from K1's")
+        reps = 20 if s.shape[1] * t.shape[1] >= 2 ** 24 else 50
+        times[tag] = (cuda_ms(lambda: nn_search_vals(s, t, m, n), reps),
+                      cuda_ms(lambda: nn_search_vals_plain(s, t, m, n), 5),
+                      _sweep_bound(s, t, m, 8, extra_in=(n,), outs=got), 0.0)
+    out["nn_sweep_vals"] = times, max_err
+    print("phase 5 K3 nn_sweep (vpu, vpu2, mxu) and K4 nn_sweep_vals vs plain: "
+          "indices equal, d2 bit-equal, K4 q and n equal; " + "; ".join(
+              f"{key} {tag}: kernel {k:.4f} ms (of it the per-target row "
+              f"{a:.4f} ms), plain {p:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
+              for key, (times, _) in out.items()
+              for tag, (k, p, b, a) in times.items()))
+    # the main path of K3 and K4 is phase 7 (source stride 4): S=2048, T=8192
+    res = {}
+    for key, (times, err) in out.items():
+        k, p, (b, by), _ = times["S2048"]
+        res[key] = {"max_abs_err": err, "ms": k, "plain_ms": p,
+                    "bound_ms": b, "bound_by": by}
+    return res
+
+
+def _pruned_pairs(rng, dev):
+    """Phase 6's inputs as ICP gives them to K5: 4 consecutive pairs of
+    bench.py's trajectory, the source (scan i+1) strided by 4 and the
+    target (scan i) Morton-sorted, the source sorted by its raw coordinates
+    and then moved into the target's frame by the true relative pose."""
+    T = synthetic.make_trajectory(N_SCANS, radius=12.0)[:5]
+    c = _voxelised_scans(rng, dev, T)
+    rel = torch.from_numpy(np.stack([np.linalg.inv(T[i]) @ T[i + 1]
+                                     for i in range(4)]).astype(np.float32)).to(dev)
+    ss, sv, _ = nn_pruned.morton_sort(c.points[1:, ::STRIDE].contiguous(),
+                                      c.mask[1:, ::STRIDE].contiguous())
+    ts, tv, _ = nn_pruned.morton_sort(c.points[:4], c.mask[:4])
+    return transform_points(rel, ss).contiguous(), sv, ts, tv
+
+
+def phase_k5(rng, dev):
+    scans = _pruned_pairs(rng, dev)
+    rs, rt = (torch.from_numpy(_cloud_points(rng, 2, n, extent=12.0)).to(dev)
+              for n in (1000, 1300))
+    rsm, rtm = (torch.from_numpy(rng.uniform(size=(2, n)) > f).to(dev)
+                for n, f in ((1000, 0.1), (1300, 0.3)))
+    ragged = (*nn_pruned.morton_sort(rs, rsm)[:2], *nn_pruned.morton_sort(rt, rtm)[:2])
+    times, max_err, notes = {}, 0.0, []
+    for tag, (ss, sv, ts, tv) in (("ragged", ragged), ("scans", scans)):
+        i_k, d_k = nn_pruned.nn_search_pruned_presorted(ss, sv, ts, tv, GATE)
+        i_p, d_p = nn_pruned.nn_search_pruned_presorted_plain(ss, sv, ts, tv, GATE)
+        torch.cuda.synchronize()
+        if not torch.equal(i_k, i_p):
+            fail(f"K5 {tag}: indices differ in {int((i_k != i_p).sum())} rows")
+        if not torch.equal(d_k, d_p):
+            fail(f"K5 {tag}: d2 not bit-equal (max |diff| "
+                 f"{float((d_k - d_p).abs().max())})")
+        # against K1 (exhaustive, per-coordinate d2) within the gate
+        i1, d1 = nn_search(ss, ts, tv)
+        inside = sv & (d1 <= GATE * GATE)
+        err_in = float((d_k - d1)[inside].abs().max())
+        if err_in > MATMUL_ATOL:
+            fail(f"K5 {tag}: d2 differs from K1's by {err_in} within the gate")
+        differ = inside & (i_k != i1)
+        q = torch.take_along_dim(ts, i_k.long()[..., None], dim=1)
+        d_pick = ((q - ss) ** 2).sum(-1)
+        tie_err = (float((d_pick - d1)[differ].abs().amax())
+                   if bool(differ.any()) else 0.0)
+        if tie_err > MATMUL_ATOL:
+            fail(f"K5 {tag}: {int(differ.sum())} indices differ from K1's "
+                 f"beyond a near-tie ({tie_err})")
+        perm, tile_d2, t2 = nn_pruned.prepare(ss, sv, ts, tv, GATE, 512, 512)
+        *_, tiles, rows = nn_pruned.pruned_sweep_plain(
+            ss, sv, ts, t2, perm, tile_d2, 512, 512, count_visits=True)
+        n_all = perm.numel()
+        b = bound_ms(nbytes(ss, sv, ts, tv, i_k, d_k), 7.0 * rows * 512)
+        times[tag] = (
+            cuda_ms(lambda: nn_pruned.nn_search_pruned_presorted(ss, sv, ts, tv, GATE), 50),
+            cuda_ms(lambda: nn_pruned.nn_search_pruned_presorted_plain(
+                ss, sv, ts, tv, GATE), 5),
+            cuda_ms(lambda: nn_pruned.prepare(ss, sv, ts, tv, GATE, 512, 512), 50), b)
+        max_err = max(max_err, float((d_k - d_p).abs().max()))
+        notes.append(f"{tag} B={ss.shape[0]} Sp={ss.shape[1]} Tp={ts.shape[1]}: "
+                     f"{int(inside.sum())} rows within the gate, max |d2 - K1 d2| "
+                     f"{err_in:.3g}, {int(differ.sum())} near-tie indices "
+                     f"differ from K1's; {tiles} of {n_all} tiles scored; kernel "
+                     f"{times[tag][0]:.4f} ms (of it preparation "
+                     f"{times[tag][2]:.4f} ms), plain {times[tag][1]:.4f} ms, "
+                     f"bound {b[0]:.4f} ms ({b[1]})")
+    print("phase 6 K5 nn_pruned vs plain: idx equal, d2 bit-equal; " + "; ".join(notes))
+    k, p, _, (b, by) = times["scans"]
+    return {"max_abs_err": max_err, "ms": k, "plain_ms": p, "bound_ms": b,
+            "bound_by": by}
+
+
+def _pose_err(T_a, T_b):
+    """(position error, rotation angle from the skew part) of T_a^-1 T_b."""
+    D = np.linalg.inv(T_a) @ T_b
+    R = D[:, :3, :3]
+    skew = np.stack([R[:, 2, 1] - R[:, 1, 2], R[:, 0, 2] - R[:, 2, 0],
+                     R[:, 1, 0] - R[:, 0, 1]], axis=-1)
+    return (np.linalg.norm(D[:, :3, 3], axis=-1),
+            np.arcsin(np.clip(np.linalg.norm(skew, axis=-1) / 2, 0, 1)))
+
+
+def phase_nn_impls(d, T_gt, dev):
+    """Stage 1 at bench.py's ICP settings under every nn_impl."""
+    euroc = EurocDataset(d)
+    prm = euroc.read_scanmatcher_parameters()
+    cfg = IcpConfig(capacity=CAPACITY, source_stride=STRIDE)
+    scan_times, _, _, odo, _ = sm.prepare_experiment_data(euroc, 0, prm["delta_time"])
+    raw_pts, raw_mask = sm.load_scans(euroc, scan_times, cfg.raw_capacity)
+    points, mask, normals, _ = sm.preprocess_all(
+        raw_pts, raw_mask, cfg, prm["method"], prm["voxel_size"], dev)
+    idx_src, idx_tgt, seeds = sm.consecutive_pairs(
+        points.shape[0], cfg.batch_size, sm.relative_odometry(odo))
+    n_pairs = points.shape[0] - 1
+    args = (points, mask, normals, torch.from_numpy(idx_src).to(dev),
+            torch.from_numpy(idx_tgt).to(dev), torch.from_numpy(seeds).to(dev))
+    runs, launches, lines = {}, {}, []
+    for impl, key in NN_IMPLS.items():
+        params = ICPParams(max_correspondence_distance=GATE, max_iterations=30,
+                           convergence_tol=1e-4, source_stride=STRIDE,
+                           nn_impl=impl)
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        T, fit, iters, delta = sm.match_all(*args, params, "point_to_plane",
+                                            cfg.batch_size)
+        T = T.cpu().numpy().astype(np.float64)[:n_pairs]
+        icp_s = time.time() - t0
+        launches[key] = _cuda.launch_counts[key]
+        if launches[key] <= 0:
+            fail(f"stage 1 nn_impl={impl} did not launch {key}")
+        bad = sm.fell_back(fit.cpu().numpy()[:n_pairs],
+                           delta.cpu().numpy()[:n_pairs], cfg.min_fitness, params)
+        if bad.any():
+            fail(f"stage 1 nn_impl={impl}: {int(bad.sum())} pairs fell back "
+                 f"to their seed")
+        T_glob = np.empty((n_pairs + 1, 4, 4))
+        T_glob[0] = np.eye(4)
+        for i in range(n_pairs):
+            T_glob[i + 1] = T_glob[i] @ T[i]
+        err = ate(T_glob, T_gt)["rmse"]
+        if not np.isfinite(T).all() or err >= VOXEL:
+            fail(f"stage 1 nn_impl={impl}: ATE rmse {err} m")
+        runs[impl] = T
+        dpos, drot = _pose_err(runs["auto"], T)
+        if dpos.max() > 1e-3 or drot.max() > 1e-3:
+            fail(f"stage 1 nn_impl={impl}: relative transforms differ from "
+                 f"the K1 run by {dpos.max()} m / {drot.max()} rad")
+        it = iters.cpu().numpy()[:n_pairs]
+        lines.append(f"{impl} ({key} x{launches[key]}): ICP {icp_s:.4f} s, "
+                     f"{n_pairs / icp_s:.3f} frames/s, iterations mean "
+                     f"{it.mean():.3f} max {int(it.max())}, ATE {err:.5f} m, "
+                     f"max vs K1 {dpos.max():.3g} m / {drot.max():.3g} rad")
+    print(f"phase 7 stage 1 under every nn_impl ({n_pairs} pairs, capacity "
+          f"{CAPACITY}, stride {STRIDE}, gate {GATE} m, batch "
+          f"{cfg.batch_size}, 30 iterations, tol 1e-4; 0 fallbacks each): "
+          + "; ".join(lines))
     return launches
 
 
@@ -246,22 +514,34 @@ def main():
     torch.cuda.set_device(dev)
     name, smi = phase_device()
     rng = np.random.default_rng(0)
-    k1 = phase_k1(rng, dev)
-    k2 = phase_k2(rng, dev)
+    cases = _nn_cases(rng, dev)
+    res = {"nn_sweep": phase_k1(cases), "ball_moments": phase_k2(rng, dev)}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_stage1(tmp, smi)
-    kernels = [
-        {"name": "nn_sweep", "route": "cuda",
-         "source": "lidar_slam_arvc_tpu_torch/csrc/nn_sweep.cu",
-         "replaces": "lidar_slam_arvc_tpu/ops/nn_pallas.py:107",
-         "launches": launches["nn_sweep"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "ball_moments", "route": "cuda",
-         "source": "lidar_slam_arvc_tpu_torch/csrc/ball_moments.cu",
-         "replaces": "lidar_slam_arvc_tpu/ops/moments_pallas.py:43",
-         "launches": launches["ball_moments"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        stage1, d, T_gt = phase_stage1(tmp, smi)
+        res.update(phase_k3_k4(cases))
+        res["nn_pruned"] = phase_k5(rng, dev)
+        launches = phase_nn_impls(d, T_gt, dev)
+    # K1's and K2's main path is phase 4, the CLI at source stride 1
+    launches.update(nn_sweep=stage1["nn_sweep"],
+                    ball_moments=stage1["ball_moments"])
+    pallas = "lidar_slam_arvc_tpu/ops/"
+    meta = [
+        ("nn_sweep", "nn_sweep.cu", "nn_pallas.py:107"),
+        ("ball_moments", "ball_moments.cu", "moments_pallas.py:43"),
+        ("nn_sweep_vpu", "nn_sweep.cu", "nn_pallas.py:79"),
+        ("nn_sweep_vpu2", "nn_sweep.cu", "nn_pallas.py:93"),
+        ("nn_sweep_mxu", "nn_sweep.cu", "nn_pallas.py:246"),
+        ("nn_sweep_vals", "nn_sweep_vals.cu", "nn_pallas.py:135"),
+        ("nn_pruned", "nn_pruned.cu", "nn_pruned.py:85"),
     ]
+    kernels = [
+        {"name": key, "route": "cuda",
+         "source": f"lidar_slam_arvc_tpu_torch/csrc/{src}",
+         "replaces": pallas + tpu, "launches": launches[key],
+         "max_abs_err": res[key]["max_abs_err"], "ms": res[key]["ms"],
+         "plain_ms": res[key]["plain_ms"], "bound_ms": res[key]["bound_ms"],
+         "bound_by": res[key]["bound_by"], "library_ms": None}
+        for key, src, tpu in meta]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

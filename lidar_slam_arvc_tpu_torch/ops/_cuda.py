@@ -35,7 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each kernel since the last reset (wrappers add one per launch)
-launch_counts = {"nn_sweep": 0, "ball_moments": 0}
+launch_counts = {"nn_sweep": 0, "ball_moments": 0, "nn_sweep_vpu": 0,
+                 "nn_sweep_vpu2": 0, "nn_sweep_mxu": 0, "nn_sweep_vals": 0,
+                 "nn_pruned": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -108,10 +110,14 @@ def _build() -> str:
 def _load(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nn_sweep_launch.argtypes = [P, P, P, I, I, I, P, P, P]
+    lib.nn_sweep_launch.argtypes = [I, P, P, P, P, I, I, I, P, P, P]
     lib.nn_sweep_launch.restype = I
     lib.ball_moments_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, F, P, P]
     lib.ball_moments_launch.restype = I
+    lib.nn_sweep_vals_launch.argtypes = [P, P, P, P, I, I, I, P, P, P, P]
+    lib.nn_sweep_vals_launch.restype = I
+    lib.nn_pruned_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P, P, P]
+    lib.nn_pruned_launch.restype = I
     return lib
 
 

@@ -94,6 +94,30 @@ def tile_boxes(points: torch.Tensor, mask: torch.Tensor, tile: int = TILE):
     return lo.contiguous(), hi.contiguous()
 
 
+def scored_pairs(query, tgt, tgt_mask, radius: float, query_mask=None,
+                 query_block: int = 128) -> tuple[int, int]:
+    """(tiles, pairs) the kernel scores: the (query block, target tile)
+    pairs whose box gap does not exceed the radius, and the sum over them
+    of valid queries x tile targets.  The skip test as in
+    ``ball_moments.cu`` (blocks of 128 queries, tiles of TILE targets); for
+    reckoning the kernel's work, not for its results."""
+    query, tgt, tgt_mask, query_mask, _ = _batched(query, tgt, tgt_mask,
+                                                   query_mask)
+    lo, hi = tile_boxes(tgt, tgt_mask)                              # (B, nt, 3)
+    qlo, qhi = tile_boxes(query, query_mask, query_block)           # (B, nq, 3)
+    gap = torch.maximum(lo[:, None] - qhi[:, :, None], qlo[:, :, None] - hi[:, None])
+    gap = torch.where(torch.isfinite(gap), gap.clamp(min=0.0), 1e12)
+    visit = (gap * gap).sum(-1) <= float(radius) ** 2               # (B, nq, nt)
+    T = tgt.shape[1]
+    n_tgt = torch.clamp(T - TILE * torch.arange(lo.shape[1], device=tgt.device),
+                        max=TILE)
+    pad = (-query_mask.shape[1]) % query_block
+    n_q = torch.cat([query_mask, query_mask.new_zeros((query_mask.shape[0], pad))],
+                    dim=1).view(query_mask.shape[0], -1, query_block).sum(-1)
+    pairs = (visit * n_q[..., None] * n_tgt).sum()
+    return int(visit.sum()), int(pairs)
+
+
 def ball_moments(query: torch.Tensor, tgt: torch.Tensor,
                  tgt_mask: torch.Tensor, radius: float,
                  query_mask: torch.Tensor | None = None):

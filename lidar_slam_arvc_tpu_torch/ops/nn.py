@@ -1,96 +1,245 @@
-"""Exact nearest-neighbour sweep: K1, the CUDA kernel, and its plain version.
+"""Exact nearest-neighbour sweeps: K1, K3 and K4, and their plain versions.
 
-Replaces ``lidar_slam_arvc_tpu/ops/nn_pallas.py::nn_search_pallas`` with
-``impl="vpu_t"`` (TPU kernel ``_nn_kernel_vpu_t``), the correspondence
-search of every ICP iteration.  Contract: for each source point the index
-and squared distance of the nearest valid target; d2 per coordinate as
-``(dx*dx + dy*dy) + dz*dz``; masked targets at the sentinel -4e7; ties to
-the lowest target index.
+Replaces ``lidar_slam_arvc_tpu/ops/nn_pallas.py``, the correspondence
+search of every ICP iteration.  Contract of every form: for each source
+point the index (or the values) and the squared distance of the nearest
+valid target, ties to the lowest target index.  The forms differ in how
+d2 is formed and so in what a masked winner (only when every target is
+masked) reports:
 
-``nn_search`` launches ``csrc/nn_sweep.cu`` for CUDA tensors (see the
-source for what bounds it on an H100 and how it is laid out) and runs
-``nn_search_plain`` for CPU tensors.  A CUDA tensor never reaches the
-plain version: a build or launch failure raises.
+==========  ================================  =================  ==========
+impl        TPU kernel                        d2                 masked d2
+==========  ================================  =================  ==========
+``vpu_t``   ``_nn_kernel_vpu_t`` (K1)         (dx²+dy²)+dz²,     >= ~4e14
+                                              sentinel -4e7
+``vpu2``    ``_nn_kernel_vpu2`` (K3)          as ``vpu_t``       >= ~4e14
+``vpu``     ``_nn_kernel_vpu`` (K3)           ((dx²+dy²)+dz²)    ~1e12 + d2
+                                              + pen (1e12)
+``mxu``     ``_nn_kernel_mxu`` (K3)           max(t2 - 2 s.t     ~1e12
+                                              + s2, 0)
+==========  ================================  =================  ==========
+
+``nn_search_vals`` (K4, ``_nn_kernel_vpu_tq``) is ``vpu_t`` returning the
+winner's point and normal instead of its index.  ``nn_search_xla`` is the
+counterpart of ``lidar_slam_arvc_tpu/ops/nn.py::nn_search``, the JAX
+package's matmul-form sweep: plain PyTorch there and here, no kernel.
+
+``nn_search`` and ``nn_search_vals`` launch ``csrc/nn_sweep.cu`` and
+``csrc/nn_sweep_vals.cu`` for CUDA tensors (see the sources for what bounds
+them on an H100) and run the plain versions for CPU tensors.  A CUDA
+tensor never reaches a plain version: a build or launch failure raises.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 
 SENTINEL = -4e7
+BIG = 1e12
+
+# impl -> (d2 form of csrc/nn_sweep.cuh, launch-count key)
+FORMS = {"vpu_t": (0, "nn_sweep"), "vpu2": (0, "nn_sweep_vpu2"),
+         "vpu": (1, "nn_sweep_vpu"), "mxu": (2, "nn_sweep_mxu")}
 
 
-def _batched(src, tgt, tgt_mask):
+def _batched(src, *rest):
     if src.dim() == 2:
-        return src[None], tgt[None], tgt_mask[None], False
-    return src, tgt, tgt_mask, True
+        return (src[None], *(x[None] for x in rest), False)
+    return (src, *rest, True)
+
+
+def _unbatched(outs, batched):
+    return outs if batched else tuple(x[0] for x in outs)
+
+
+def _sq_norm(p: torch.Tensor) -> torch.Tensor:
+    """(x*x + y*y) + z*z, each operation rounded on its own (the kernels'
+    order)."""
+    x, y, z = p.unbind(-1)
+    return (x * x + y * y) + z * z
+
+
+def _target_aux(tgt, tgt_mask, impl):
+    """The per-target row the JAX wrapper builds outside its kernel: the
+    penalty (``vpu``) or t2 = |t|^2 + penalty (``mxu``); None otherwise."""
+    if impl not in ("vpu", "mxu"):
+        return None
+    pen = torch.where(tgt_mask, 0.0, BIG).to(torch.float32)
+    return pen if impl == "vpu" else _sq_norm(tgt) + pen
 
 
 def nn_search_plain(src: torch.Tensor, tgt: torch.Tensor,
-                    tgt_mask: torch.Tensor, max_elems: int = 1 << 24):
-    """Plain PyTorch K1: the same contract, sweeping target chunks.
+                    tgt_mask: torch.Tensor, impl: str = "vpu_t",
+                    max_elems: int = 1 << 24):
+    """Plain PyTorch K1/K3: the same contract and arithmetic, sweeping
+    target chunks.
 
     Chunks of targets keep the (B, S, chunk) score tensor under
     ``max_elems``; across chunks the running best is replaced only on a
     strict <, and within a chunk ``min`` returns the first minimum, so
-    ties go to the lowest index as in the kernel."""
+    ties go to the lowest index as in the kernels."""
+    if impl not in FORMS:
+        raise ValueError(f"unknown impl {impl!r} ({'|'.join(FORMS)})")
     src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
     B, S, _ = src.shape
     T = tgt.shape[1]
-    tgt_s = torch.where(tgt_mask[..., None], tgt, SENTINEL)
+    aux = _target_aux(tgt, tgt_mask, impl)
+    if FORMS[impl][0] == 0:
+        tgt = torch.where(tgt_mask[..., None], tgt, SENTINEL)
     best = torch.full((B, S), torch.inf, dtype=torch.float32, device=src.device)
     best_i = torch.zeros((B, S), dtype=torch.int64, device=src.device)
     chunk = max(1, min(T, max_elems // max(B * S, 1)))
     sx, sy, sz = (src[..., a, None] for a in range(3))       # (B, S, 1)
     for c0 in range(0, T, chunk):
-        t = tgt_s[:, None, c0:c0 + chunk]                       # (B, 1, C, 3)
-        dx = t[..., 0] - sx
-        dy = t[..., 1] - sy
-        dz = t[..., 2] - sz
-        d2 = dx * dx + dy * dy
-        d2 = d2 + dz * dz
+        t = tgt[:, None, c0:c0 + chunk]                         # (B, 1, C, 3)
+        if impl == "mxu":
+            cross = t[..., 0] * sx + t[..., 1] * sy
+            cross = cross + t[..., 2] * sz
+            d2 = aux[:, None, c0:c0 + chunk] - 2.0 * cross
+        else:
+            dx = t[..., 0] - sx
+            dy = t[..., 1] - sy
+            dz = t[..., 2] - sz
+            d2 = dx * dx + dy * dy
+            d2 = d2 + dz * dz
+            if impl == "vpu":
+                d2 = d2 + aux[:, None, c0:c0 + chunk]
         m, a = torch.min(d2, dim=-1)
         better = m < best
         best = torch.where(better, m, best)
         best_i = torch.where(better, a + c0, best_i)
-    best_i = best_i.to(torch.int32)
-    if not batched:
-        return best_i[0], best[0]
-    return best_i, best
+    if impl == "mxu":
+        best = torch.clamp(best + _sq_norm(src), min=0.0)
+    return _unbatched((best_i.to(torch.int32), best), batched)
 
 
-def nn_search(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor):
-    """Nearest valid target per source point.
-
-    Args: src (B, S, 3) or (S, 3) f32; tgt (B, T, 3) or (T, 3) f32;
-    tgt_mask (B, T) or (T,) bool.  Returns (idx int32, d2 f32), each
-    shaped like ``src`` without its last axis.
-    """
-    if src.device.type == "cpu":
-        return nn_search_plain(src, tgt, tgt_mask)
-    if src.device.type != "cuda":
-        raise ValueError(f"nn_search: unsupported device {src.device}")
-    src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
+def _require_cloud(fn, src, tgt, tgt_mask, extra=()):
     B, S = src.shape[:2]
     T = tgt.shape[1]
     dev = src.device
     _cuda.require(src, "src", torch.float32, (B, S, 3), dev)
     _cuda.require(tgt, "tgt", torch.float32, (B, T, 3), dev)
     _cuda.require(tgt_mask, "tgt_mask", torch.bool, (B, T), dev)
+    for name, x in extra:
+        _cuda.require(x, name, torch.float32, (B, T, 3), dev)
     if S == 0 or T == 0:
-        raise ValueError("nn_search: empty source or target cloud")
+        raise ValueError(f"{fn}: empty source or target cloud")
+    return B, S, T, dev
+
+
+def nn_search(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
+              impl: str = "vpu_t"):
+    """Nearest valid target per source point, in the d2 form ``impl``
+    (``vpu_t`` = K1; ``vpu``, ``vpu2``, ``mxu`` = K3; see the module
+    docstring).
+
+    Args: src (B, S, 3) or (S, 3) f32; tgt (B, T, 3) or (T, 3) f32;
+    tgt_mask (B, T) or (T,) bool.  Returns (idx int32, d2 f32), each
+    shaped like ``src`` without its last axis.
+    """
+    if impl not in FORMS:
+        raise ValueError(f"unknown impl {impl!r} ({'|'.join(FORMS)})")
+    if src.device.type == "cpu":
+        return nn_search_plain(src, tgt, tgt_mask, impl)
+    if src.device.type != "cuda":
+        raise ValueError(f"nn_search: unsupported device {src.device}")
+    src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
+    B, S, T, dev = _require_cloud("nn_search", src, tgt, tgt_mask)
+    form, key = FORMS[impl]
+    aux = _target_aux(tgt, tgt_mask, impl)
     idx = torch.empty((B, S), dtype=torch.int32, device=dev)
     d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
-        err = lib.nn_sweep_launch(src.data_ptr(), tgt.data_ptr(),
-                                  tgt_mask.data_ptr(), B, S, T,
-                                  idx.data_ptr(), d2.data_ptr(),
-                                  _cuda.stream_of(src))
-    _cuda.check(err, "nn_sweep")
-    _cuda.launch_counts["nn_sweep"] += 1
-    if not batched:
-        return idx[0], d2[0]
-    return idx, d2
+        err = lib.nn_sweep_launch(
+            form, src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
+            None if aux is None else aux.data_ptr(), B, S, T, idx.data_ptr(),
+            d2.data_ptr(), _cuda.stream_of(src))
+    _cuda.check(err, key)
+    _cuda.launch_counts[key] += 1
+    return _unbatched((idx, d2), batched)
+
+
+def nn_search_vals_plain(src, tgt, tgt_mask, tgt_normals,
+                         max_elems: int = 1 << 24):
+    """Plain PyTorch K4: K1's plain sweep, then the winner's point and
+    normal gathered by index."""
+    src, tgt, tgt_mask, tgt_normals, batched = _batched(
+        src, tgt, tgt_mask, tgt_normals)
+    idx, d2 = nn_search_plain(src, tgt, tgt_mask, max_elems=max_elems)
+    g = idx.to(torch.int64)[..., None].expand(idx.shape + (3,))
+    return _unbatched((d2, torch.gather(tgt, 1, g),
+                       torch.gather(tgt_normals, 1, g)), batched)
+
+
+def nn_search_vals(src: torch.Tensor, tgt: torch.Tensor,
+                   tgt_mask: torch.Tensor, tgt_normals: torch.Tensor):
+    """K4: (d2, q, n) of the nearest valid target per source point, with
+    d2 as ``nn_search(impl="vpu_t")`` and q, n the winner's point and
+    normal (its real coordinates even when it is masked).
+
+    Shapes as ``nn_search``; tgt_normals like ``tgt``.  Returns d2 shaped
+    like ``src`` without its last axis, q and n like ``src``.
+    """
+    if src.device.type == "cpu":
+        return nn_search_vals_plain(src, tgt, tgt_mask, tgt_normals)
+    if src.device.type != "cuda":
+        raise ValueError(f"nn_search_vals: unsupported device {src.device}")
+    src, tgt, tgt_mask, tgt_normals, batched = _batched(
+        src, tgt, tgt_mask, tgt_normals)
+    B, S, T, dev = _require_cloud("nn_search_vals", src, tgt, tgt_mask,
+                                  (("tgt_normals", tgt_normals),))
+    d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
+    q = torch.empty((B, S, 3), dtype=torch.float32, device=dev)
+    n = torch.empty((B, S, 3), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.nn_sweep_vals_launch(
+            src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
+            tgt_normals.data_ptr(), B, S, T, d2.data_ptr(), q.data_ptr(),
+            n.data_ptr(), _cuda.stream_of(src))
+    _cuda.check(err, "nn_sweep_vals")
+    _cuda.launch_counts["nn_sweep_vals"] += 1
+    return _unbatched((d2, q, n), batched)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def nn_search_xla(src: torch.Tensor, tgt: torch.Tensor,
+                  tgt_mask: torch.Tensor, tgt_block: int = 2048):
+    """Counterpart of the JAX package's ``ops/nn.py::nn_search``: the
+    matmul form d2 = (s2 + t2) - 2 s.t, masked targets at t2 + 1e12, swept
+    over target blocks (ties to the lowest index), clamped at 0.
+
+    Plain PyTorch on every device (the JAX side is XLA, no Pallas kernel);
+    s.t is a full-f32 ``torch.matmul`` (TF32 off for the call).  Shapes as
+    ``nn_search``."""
+    src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
+    B, S, _ = src.shape
+    T = tgt.shape[1]
+    s2 = torch.sum(src * src, dim=-1)[..., None]                 # (B, S, 1)
+    t2 = torch.sum(tgt * tgt, dim=-1) + torch.where(tgt_mask, 0.0, BIG)
+    best = torch.full((B, S), torch.inf, dtype=torch.float32, device=src.device)
+    best_i = torch.zeros((B, S), dtype=torch.int64, device=src.device)
+    with _full_f32_matmul():
+        for c0 in range(0, T, tgt_block):
+            cross = torch.matmul(src, tgt[:, c0:c0 + tgt_block].transpose(1, 2))
+            d2 = (s2 + t2[:, None, c0:c0 + tgt_block]) - 2.0 * cross
+            m, a = torch.min(d2, dim=-1)
+            better = m < best
+            best = torch.where(better, m, best)
+            best_i = torch.where(better, a + c0, best_i)
+    return _unbatched((best_i.to(torch.int32), torch.clamp(best, min=0.0)),
+                      batched)

@@ -9,8 +9,9 @@ scanmatcher CSVs and ``robot0/viz/scanmatcher_profile.json``.
 
 Path: PCD load (thread pool) -> per batch of ``cfg.batch_size`` scans on
 the device: crop, voxel downsample (or compaction), normals (K2) -> ICP
-over groups of ``cfg.batch_size`` consecutive pairs (K1 once per
-iteration per group) -> divergence gate -> fold -> CSVs.
+over groups of ``cfg.batch_size`` consecutive pairs (``match_all``; K1 once
+per iteration per group, or the search ``nn_impl`` names) -> divergence
+gate -> fold -> CSVs.
 
 Not ported yet (they raise): mid-stage checkpointing, device meshes and
 multi-host runs, the streamed load, and the icp2planes/fpfh methods.
@@ -109,6 +110,53 @@ def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
     return points, mask, normals, overflow
 
 
+def match_all(points, mask, normals, idx_src, idx_tgt, seeds,
+              params: ICPParams, method: str, batch: int):
+    """ICP of every listed scan pair, in groups of ``batch``.
+
+    Counterpart of the reference's ``_match_all_fused``: pair k matches
+    source scan ``idx_src[k]`` to target scan ``idx_tgt[k]`` of the
+    (N, C, 3) stack from seed ``seeds[k]``; the pair count must be a
+    multiple of ``batch``.  ``params.nn_impl`` selects the correspondence
+    search.  Returns device tensors (transforms (P, 4, 4), fitness,
+    iterations, final_delta), each over the P pairs."""
+    if len(idx_src) % batch:
+        raise ValueError(f"{len(idx_src)} pairs are not whole groups of {batch}")
+    outs = []
+    for g0 in range(0, len(idx_src), batch):
+        si, ti = idx_src[g0:g0 + batch], idx_tgt[g0:g0 + batch]
+        outs.append(icp_batch(points[si], mask[si], points[ti], mask[ti],
+                              normals[ti], seeds[g0:g0 + batch], params,
+                              method))
+    return tuple(torch.cat([getattr(r, f) for r in outs]) for f in
+                 ("transform", "fitness", "iterations", "final_delta"))
+
+
+def consecutive_pairs(n_scans: int, batch: int, T_seeds: np.ndarray):
+    """(idx_src, idx_tgt, seeds f32) of the pairs (i+1 -> i), padded to a
+    batch multiple with identity-seeded self-pairs of the last scan
+    (computed, then discarded)."""
+    n_pairs = n_scans - 1
+    pad = (-n_pairs) % batch
+    idx_src = np.concatenate([np.arange(1, n_pairs + 1), np.full(pad, n_pairs)])
+    idx_tgt = np.concatenate([np.arange(0, n_pairs), np.full(pad, n_pairs)])
+    seeds = np.concatenate(
+        [T_seeds, np.tile(np.eye(4), (pad, 1, 1))]).astype(np.float32)
+    return idx_src, idx_tgt, seeds
+
+
+def fell_back(fitness: np.ndarray, final_delta: np.ndarray,
+              min_fitness: float, params: ICPParams) -> np.ndarray:
+    """Pairs that keep their seed: a low inlier fraction, or still moving
+    by >= 100x the convergence tol when max_iterations ran out (the
+    carried fitness predates the last update, so divergence there shows in
+    final_delta)."""
+    bad = fitness < min_fitness
+    if params.convergence_tol > 0:
+        bad |= final_delta > 100 * params.convergence_tol
+    return bad
+
+
 def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                       cfg: IcpConfig, method: str, progress: bool = True):
     """Batched ICP over consecutive pairs.
@@ -125,34 +173,16 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
     icp_method = ("point_to_point" if method == "icppointpoint"
                   else "point_to_plane")
     dev = points.device
-    # pad the pair list to a batch multiple with identity-seeded self-pairs
-    # of the last scan (computed, then discarded)
-    pad = (-n_pairs) % B
-    idx_src = np.concatenate([np.arange(1, n_pairs + 1), np.full(pad, n_pairs)])
-    idx_tgt = np.concatenate([np.arange(0, n_pairs), np.full(pad, n_pairs)])
-    seeds = np.concatenate(
-        [T_seeds, np.tile(np.eye(4), (pad, 1, 1))]).astype(np.float32)
-    seeds_d = torch.from_numpy(seeds).to(dev)
-    idx_src_d = torch.from_numpy(idx_src).to(dev)
-    idx_tgt_d = torch.from_numpy(idx_tgt).to(dev)
-
-    outs = []
-    for g0 in range(0, len(idx_src), B):
-        si, ti = idx_src_d[g0:g0 + B], idx_tgt_d[g0:g0 + B]
-        outs.append(icp_batch(points[si], mask[si], points[ti], mask[ti],
-                              normals[ti], seeds_d[g0:g0 + B], params,
-                              icp_method))
-    T_all = torch.cat([r.transform for r in outs]).cpu().numpy()
-    fit = torch.cat([r.fitness for r in outs]).cpu().numpy()[:n_pairs]
-    iters = torch.cat([r.iterations for r in outs]).cpu().numpy()[:n_pairs]
-    delta = torch.cat([r.final_delta for r in outs]).cpu().numpy()[:n_pairs]
-    T_all = T_all.astype(np.float64)[:n_pairs]
-    # fallback gate: low inlier fraction, or still moving by >= 100x the
-    # convergence tol when max_iterations ran out (the carried fitness
-    # predates the last update, so divergence there shows in final_delta)
-    bad = fit < cfg.min_fitness
-    if params.convergence_tol > 0:
-        bad |= delta > 100 * params.convergence_tol
+    idx_src, idx_tgt, seeds = consecutive_pairs(points.shape[0], B, T_seeds)
+    T_all, fit, iters, delta = match_all(
+        points, mask, normals, torch.from_numpy(idx_src).to(dev),
+        torch.from_numpy(idx_tgt).to(dev), torch.from_numpy(seeds).to(dev),
+        params, icp_method, B)
+    T_all = T_all.cpu().numpy().astype(np.float64)[:n_pairs]
+    fit = fit.cpu().numpy()[:n_pairs]
+    iters = iters.cpu().numpy()[:n_pairs]
+    delta = delta.cpu().numpy()[:n_pairs]
+    bad = fell_back(fit, delta, cfg.min_fitness, params)
     if bad.any():
         T_all[bad] = seeds[:n_pairs][bad].astype(np.float64)
     if progress:

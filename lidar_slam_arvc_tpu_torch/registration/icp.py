@@ -5,10 +5,24 @@ convention as there: ``icp(src=cloud_j, tgt=cloud_i, T_init=T_ij)``
 returns the refined T_ij mapping scan j's points into scan i's frame.
 
 Per iteration, for a whole group of scan pairs at once: correspondences
-from K1 (``ops.nn.nn_search``, one launch for the group), gated by
-``max_correspondence_distance``; Welsch IRLS weights; one Gauss-Newton step
-on the se(3) left perturbation (xi = [w, v], T' = exp(xi) T) with a
-Tikhonov floor; a non-finite guard.
+from the search that ``ICPParams.nn_impl`` selects (one kernel launch for
+the group), gated by ``max_correspondence_distance``; Welsch IRLS weights;
+one Gauss-Newton step on the se(3) left perturbation (xi = [w, v],
+T' = exp(xi) T) with a Tikhonov floor; a non-finite guard.
+
+``nn_impl`` as in the reference (its ``icp`` dispatch):
+
+* ``auto``, ``pallas``, ``vpu_t``: K1 (``ops.nn.nn_search``);
+* ``vpu``, ``vpu2``, ``mxu``: K3, the same search in those d2 forms;
+* ``vpu_tq``: K4 (``ops.nn.nn_search_vals``), which returns the winner's
+  point and normal, so no gathers;
+* ``pruned``: K5 (``ops.nn_pruned``), exact within the gate; both clouds
+  are Morton-sorted once per call (the source by its raw coordinates), and
+  it refuses the coarse-to-fine schedule as the reference does;
+* ``xla``: ``ops.nn.nn_search_xla``, the JAX package's matmul-form sweep.
+
+Any other value raises ``ValueError`` (the reference silently takes its
+XLA sweep there).
 
 The reference vmaps a ``lax.while_loop``: every pair freezes once its own
 update norm falls to ``convergence_tol`` and the group runs until all have.
@@ -33,20 +47,22 @@ from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
 from lidar_slam_arvc_tpu_torch.geom.se3 import (
     _hat_sq, compose, se3_exp, so3_hat, transform_points,
 )
-from lidar_slam_arvc_tpu_torch.ops.nn import nn_search
+from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_vals, nn_search_xla
+from lidar_slam_arvc_tpu_torch.ops.nn_pruned import (
+    morton_sort, nn_search_pruned_presorted, pad_rows,
+)
 
-# nn_impl values of the reference that select kernels not yet ported
-_UNPORTED_NN = {
-    "vpu": "ROADMAP Queue 2 K3", "vpu2": "ROADMAP Queue 2 K3",
-    "mxu": "ROADMAP Queue 2 K3", "vpu_tq": "ROADMAP Queue 2 K4",
-    "pruned": "ROADMAP Queue 2 K5",
-}
+NN_IMPLS = ("auto", "pallas", "vpu_t", "vpu", "vpu2", "mxu", "vpu_tq",
+            "pruned", "xla")
 
 
 class ICPParams(NamedTuple):
     """The reference's ICP parameters, same names and defaults, so
     ``ICPParams(**jax_params._asdict())`` converts them.  ``src_block`` and
-    ``tgt_block`` were TPU tile sizes; the port's kernel ignores them."""
+    ``tgt_block`` were TPU tile sizes; only ``nn_impl="pruned"`` reads
+    them, as the reference does: K5's blocks have ``min(512, src_block)``
+    source and ``min(512, tgt_block)`` target rows.  The other searches
+    ignore them."""
     max_correspondence_distance: float = 10.0
     max_iterations: int = 30
     src_block: int = 1024
@@ -56,8 +72,7 @@ class ICPParams(NamedTuple):
     robust: bool = True
     # per-pair early exit on the se(3) update norm; 0 disables it
     convergence_tol: float = 1e-4
-    # 'auto' | 'pallas' | 'vpu_t' all select K1; other reference values
-    # name kernels that are not ported yet and raise
+    # correspondence search, one of NN_IMPLS (see the module docstring)
     nn_impl: str = "auto"
     coarse_factor: int = 1
     coarse_iterations: int = 0
@@ -104,15 +119,42 @@ def _gn_point_to_point(p, q, w):
     return H, torch.cat([bw, bv], dim=-1)
 
 
-def _check_nn_impl(nn_impl: str) -> None:
-    if nn_impl in ("auto", "pallas", "vpu_t"):
-        return
-    if nn_impl in _UNPORTED_NN:
-        raise NotImplementedError(
-            f"nn_impl={nn_impl!r} is not ported yet ({_UNPORTED_NN[nn_impl]})")
-    raise NotImplementedError(
-        f"nn_impl={nn_impl!r}: the port's correspondence search is K1 "
-        "('auto' | 'pallas' | 'vpu_t')")
+def _check_nn_impl(params: ICPParams) -> None:
+    if params.nn_impl not in NN_IMPLS:
+        raise ValueError(f"unknown nn_impl {params.nn_impl!r} "
+                         f"({' | '.join(NN_IMPLS)})")
+    if (params.nn_impl == "pruned" and params.coarse_factor > 1
+            and params.coarse_iterations > 0):
+        raise ValueError("nn_impl='pruned' does not compose with the "
+                         "coarse-to-fine schedule (strided sources "
+                         "break the presorted block layout)")
+
+
+def _correspondence(params: ICPParams, src_mask, tgt_points, tgt_masks,
+                    tgt_normals):
+    """correspond(p) -> (d2, q, n) for transformed sources p, by the
+    search that ``params.nn_impl`` selects.  ``src_mask`` is read by the
+    pruned search only."""
+    impl = params.nn_impl
+
+    def gathered(idx, d2):
+        g = idx.to(torch.int64)[..., None].expand(idx.shape + (3,))
+        return d2, torch.gather(tgt_points, 1, g), torch.gather(tgt_normals, 1, g)
+
+    if impl == "vpu_tq":
+        return lambda p: nn_search_vals(p.contiguous(), tgt_points, tgt_masks,
+                                        tgt_normals)
+    if impl == "xla":
+        return lambda p: gathered(*nn_search_xla(p, tgt_points, tgt_masks))
+    if impl == "pruned":
+        sb = min(512, params.src_block)
+        tb = min(512, params.tgt_block)
+        gate = params.max_correspondence_distance
+        return lambda p: gathered(*nn_search_pruned_presorted(
+            p.contiguous(), src_mask, tgt_points, tgt_masks, gate, sb, tb))
+    form = "vpu_t" if impl in ("auto", "pallas") else impl
+    return lambda p: gathered(*nn_search(p.contiguous(), tgt_points, tgt_masks,
+                                         form))
 
 
 def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
@@ -127,22 +169,29 @@ def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
         raise ValueError(f"unknown ICP method {method!r}")
     if method == "point_to_plane" and tgt_normals is None:
         raise ValueError("point_to_plane ICP needs target normals")
-    _check_nn_impl(params.nn_impl)
+    _check_nn_impl(params)
     if tgt_normals is None:
         tgt_normals = torch.zeros_like(tgt_points)
     src_pts, src_mask = src_points, src_masks
     if params.source_stride > 1:
-        src_pts = src_pts[:, ::params.source_stride].contiguous()
-        src_mask = src_mask[:, ::params.source_stride].contiguous()
+        src_pts = src_pts[:, ::params.source_stride]
+        src_mask = src_mask[:, ::params.source_stride]
+    if params.nn_impl == "pruned":
+        # both clouds Morton-sorted once: the target is fixed and a rigid
+        # motion keeps the source's blocks compact; every reduction below
+        # is over rows, so the order does not change the result's meaning
+        src_pts, src_mask, _ = morton_sort(src_pts, src_mask,
+                                           min(512, params.src_block))
+        tgt_points, tgt_masks, t_order = morton_sort(
+            tgt_points, tgt_masks, min(512, params.tgt_block))
+        tgt_normals = torch.take_along_dim(
+            pad_rows(tgt_normals, t_order.shape[1]), t_order[..., None], dim=1)
+    src_pts = src_pts.contiguous()
+    src_mask = src_mask.contiguous()
     src_mask_f = src_mask.to(src_pts.dtype)
-    tgt_points = tgt_points.contiguous()
-    tgt_masks = tgt_masks.contiguous()
     thr2 = params.max_correspondence_distance ** 2
-
-    def correspond(p):
-        idx, d2 = nn_search(p.contiguous(), tgt_points, tgt_masks)
-        g = idx.to(torch.int64)[..., None].expand(idx.shape + (3,))
-        return d2, torch.gather(tgt_points, 1, g), torch.gather(tgt_normals, 1, g)
+    correspond = _correspondence(params, src_mask, tgt_points.contiguous(),
+                                 tgt_masks.contiguous(), tgt_normals.contiguous())
 
     def metrics(d2, mask_f):
         gate = mask_f * (d2 <= thr2).to(mask_f.dtype)

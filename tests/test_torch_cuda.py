@@ -16,7 +16,9 @@ from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.moments import (
     ball_moments, ball_moments_plain, summation_tolerance)
-from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_plain
+from lidar_slam_arvc_tpu_torch.ops import nn_pruned
+from lidar_slam_arvc_tpu_torch.ops.nn import (
+    nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
 from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import run_scanmatcher
 from lidar_slam_arvc_tpu_torch.utils import synthetic
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
@@ -61,6 +63,80 @@ def test_nn_kernel_matches_plain(rng, dev, B, S, T):
     assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
     i1, d1 = nn_search(s[0], tg[0], m[0])
     assert torch.equal(i1, i_k[0]) and torch.equal(d1, d_k[0])
+
+
+@pytest.mark.parametrize("impl,key", [("vpu", "nn_sweep_vpu"),
+                                      ("vpu2", "nn_sweep_vpu2"),
+                                      ("mxu", "nn_sweep_mxu")])
+@pytest.mark.parametrize("B,S,T", [(4, 1000, 3000), (1, 77, 131), (2, 2048, 64)])
+def test_k3_kernel_matches_plain(rng, dev, impl, key, B, S, T):
+    """K3 in each d2 form: indices equal and d2 bit-equal to the plain
+    version (same rounded operations in the same order), masked and
+    duplicated targets included; every target masked in one row."""
+    src = (rng.normal(size=(B, S, 3)) * 10).astype(np.float32)
+    tgt = (rng.normal(size=(B, T, 3)) * 10).astype(np.float32)
+    tgt[:, T // 2:] = tgt[:, : T - T // 2]
+    src[:, : S // 3] = tgt[:, rng.integers(0, T, S // 3)]
+    mask = rng.uniform(size=(B, T)) > 0.3
+    mask[0] = False
+    s, tg, m = t(src, dev), t(tgt, dev), t(mask, dev)
+    n0 = _cuda.launch_counts[key]
+    i_k, d_k = nn_search(s, tg, m, impl)
+    i_p, d_p = nn_search_plain(s, tg, m, impl)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts[key] == n0 + 1
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+    assert (i_k[0] == 0).all()
+
+
+@pytest.mark.parametrize("B,S,T", [(4, 1000, 3000), (1, 77, 131)])
+def test_k4_kernel_matches_plain(rng, dev, B, S, T):
+    """K4: d2 bit-equal to K1's; q and n exactly the winner's point and
+    normal (real coordinates for a masked winner)."""
+    src = (rng.normal(size=(B, S, 3)) * 10).astype(np.float32)
+    tgt = (rng.normal(size=(B, T, 3)) * 10).astype(np.float32)
+    nrm = rng.normal(size=(B, T, 3)).astype(np.float32)
+    mask = rng.uniform(size=(B, T)) > 0.3
+    mask[0] = False
+    s, tg, m, n = t(src, dev), t(tgt, dev), t(mask, dev), t(nrm, dev)
+    n0 = _cuda.launch_counts["nn_sweep_vals"]
+    got = nn_search_vals(s, tg, m, n)
+    ref = nn_search_vals_plain(s, tg, m, n)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["nn_sweep_vals"] == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(got[0], nn_search(s, tg, m)[1])
+
+
+@pytest.mark.parametrize("sb,tb", [(512, 512), (128, 256), (100, 200)])
+def test_k5_kernel_matches_plain(rng, dev, sb, tb):
+    """K5 on Morton-sorted clouds: idx equal and d2 bit-equal to the plain
+    version (same visiting and skipping rules), invalid rows (0, 0); within
+    the gate d2 agrees with K1 and the index with K1's where unique."""
+    B, S, T, gate = 3, 1500, 2600, 4.0
+    tgt = rng.uniform(-15, 15, (B, T, 3)).astype(np.float32)
+    src = tgt[:, rng.integers(0, T, S)] + rng.normal(
+        scale=0.3, size=(B, S, 3)).astype(np.float32)
+    sm = rng.uniform(size=(B, S)) > 0.1
+    tm = rng.uniform(size=(B, T)) > 0.1
+    ss, sv, _ = nn_pruned.morton_sort(t(src, dev), t(sm, dev), sb)
+    ts, tv, _ = nn_pruned.morton_sort(t(tgt, dev), t(tm, dev), tb)
+    n0 = _cuda.launch_counts["nn_pruned"]
+    i_k, d_k = nn_pruned.nn_search_pruned_presorted(ss, sv, ts, tv, gate, sb, tb)
+    i_p, d_p = nn_pruned.nn_search_pruned_presorted_plain(ss, sv, ts, tv, gate, sb, tb)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["nn_pruned"] == n0 + 1
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+    assert not i_k[~sv].any() and not d_k[~sv].any()
+    i1, d1 = nn_search(ss, ts, tv)
+    inside = sv & (d1 <= gate * gate)
+    assert float((d_k - d1)[inside].abs().max()) <= 1e-3
+    differ = inside & (i_k != i1)
+    # a different index only on a near-tie: its per-coordinate distance
+    # equals K1's to the matmul form's rounding
+    q = torch.take_along_dim(ts, i_k.long()[..., None], dim=1)
+    d_pick = ((q - ss) ** 2).sum(-1)
+    assert not differ.any() or float((d_pick - d1)[differ].abs().amax()) <= 1e-3
 
 
 @pytest.mark.parametrize("case", ["blob", "clusters", "voxelised"])
@@ -108,6 +184,10 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         nn_search(p, p, m.cpu())
     with pytest.raises(ValueError):
+        nn_search_vals(p, p, m, p.double())
+    with pytest.raises(ValueError):
+        nn_pruned.nn_search_pruned_presorted(p, m, p, m, 1.0, 2048, 8)
+    with pytest.raises(ValueError):
         ball_moments(p, p, m.float(), 0.5)
     with pytest.raises(ValueError):
         ball_moments(p.transpose(1, 2).contiguous().transpose(1, 2), p, m, 0.5)
@@ -143,7 +223,8 @@ def test_stage1_card_matches_cpu(tmp_path, dev):
     cfg = IcpConfig(raw_capacity=4096, capacity=4096)
     _cuda.reset_launch_counts()
     gpu = run_scanmatcher(d, cfg=cfg, progress=False, device=dev)
-    assert all(v > 0 for v in _cuda.launch_counts.values())
+    assert _cuda.launch_counts["nn_sweep"] > 0
+    assert _cuda.launch_counts["ball_moments"] > 0
     cpu = run_scanmatcher(d, cfg=cfg, progress=False, device="cpu")
     dpos = np.linalg.norm(gpu["relative"][:, :3, 3] - cpu["relative"][:, :3, 3],
                           axis=1)

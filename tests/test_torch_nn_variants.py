@@ -1,0 +1,251 @@
+"""The port's K3, K4, K5 and XLA-form searches: plain versions vs the JAX
+package.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; those are
+held against the JAX package's functions on the same numpy inputs, its
+Pallas kernels in interpret mode as its own tests run them
+(``tests/test_cloud_ops.py``, ``tests/test_nn_pruned.py``).  The CUDA
+kernels themselves are compared with their plain versions in
+``tests/test_torch_cuda.py``.  Tolerances:
+
+* per-coordinate forms (``vpu``, ``vpu2``, K4): indices equal, d2 within 2
+  f32 ulp: XLA on the CPU contracts both multiply-adds of
+  (dx*dx + dy*dy) + dz*dz into FMAs, the port rounds every operation (as
+  its kernels do, bit-equal to the plain versions on the card);
+* matmul forms (``mxu``, ``pruned``, ``xla``): indices equal wherever the
+  nearest neighbour is unique by more than the tolerance, d2 within
+  atol 1e-3: |t|^2 - 2 s.t cancels terms of ~10^3 at 10-30 m coordinates,
+  and the two packages sum s.t in different orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lidar_slam_arvc_tpu.ops import nn_pruned as pruned_ref
+from lidar_slam_arvc_tpu.ops.nn import nn_search as xla_ref
+from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas, nn_search_pallas_vals
+from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned
+from lidar_slam_arvc_tpu_torch.ops.nn import (
+    nn_search, nn_search_plain, nn_search_vals, nn_search_xla)
+
+torch.set_num_threads(1)
+
+MATMUL_ATOL = 1e-3
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _clouds(rng, S, T, scale=10.0, masked=0.3):
+    """Sources, targets (10% duplicated: exact ties) and a target mask."""
+    src = (rng.normal(size=(S, 3)) * scale).astype(np.float32)
+    tgt = (rng.normal(size=(T, 3)) * scale).astype(np.float32)
+    tgt[rng.integers(0, T, T // 10)] = tgt[rng.integers(0, T, T // 10)]
+    src[: S // 4] = tgt[rng.integers(0, T, S // 4)]
+    return src, tgt, rng.uniform(size=T) > masked
+
+
+def _unique_rows(src, tgt, mask, margin=2 * MATMUL_ATOL):
+    """Rows whose valid targets within ``margin`` (in d2) of the nearest all
+    sit at the nearest one's coordinates (exact duplicates tie by index in
+    both packages)."""
+    d = ((src[:, None].astype(np.float64) - tgt[None]) ** 2).sum(-1)
+    d[:, ~mask] = np.inf
+    near = d <= d.min(1, keepdims=True) + margin
+    first = tgt[d.argmin(1)]
+    same = (tgt[None] == first[:, None]).all(-1)
+    return (~near | same).all(1)
+
+
+@pytest.mark.parametrize("impl", ["vpu", "vpu2", "mxu"])
+@pytest.mark.parametrize("S,T,sb,tb", [(300, 500, 128, 128),
+                                       (77, 131, 64, 128)])
+def test_k3_plain_matches_pallas(rng, impl, S, T, sb, tb):
+    src, tgt, mask = _clouds(rng, S, T)
+    i_ref, d_ref = (np.asarray(x) for x in nn_search_pallas(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask), src_block=sb,
+        tgt_block=tb, interpret=True, impl=impl))
+    i, d = nn_search_plain(t(src), t(tgt), t(mask), impl=impl)
+    assert i.dtype == torch.int32 and d.dtype == torch.float32
+    if impl == "mxu":
+        u = _unique_rows(src, tgt, mask)
+        assert u.mean() > 0.9
+        np.testing.assert_array_equal(i.numpy()[u], i_ref[u])
+        np.testing.assert_allclose(d.numpy(), d_ref, atol=MATMUL_ATOL)
+    else:
+        np.testing.assert_array_equal(i.numpy(), i_ref)
+        np.testing.assert_array_max_ulp(d.numpy(), d_ref, maxulp=2)
+
+
+@pytest.mark.parametrize("impl,lo,hi", [("vpu", 1e12, 1.1e12),
+                                        ("vpu2", 4e14, np.inf),
+                                        ("mxu", 0.99e12, 1.01e12)])
+def test_k3_all_masked_winner(rng, impl, lo, hi):
+    """Every target masked: index 0 in both packages, and d2 in the form's
+    own range (``vpu`` ~1e12 plus the real distance, ``vpu2`` >= ~4e14,
+    ``mxu`` ~1e12 after the + |s|^2 and the clamp)."""
+    src, tgt, _ = _clouds(rng, 40, 70)
+    none = np.zeros(70, dtype=bool)
+    i_ref, d_ref = (np.asarray(x) for x in nn_search_pallas(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(none), src_block=64,
+        tgt_block=128, interpret=True, impl=impl))
+    i, d = nn_search_plain(t(src), t(tgt), t(none), impl=impl)
+    assert (i.numpy() == 0).all() and (i_ref == 0).all()
+    assert ((d.numpy() >= lo) & (d.numpy() <= hi)).all()
+    np.testing.assert_allclose(d.numpy(), d_ref, rtol=1e-6)
+
+
+@pytest.mark.parametrize("S,T", [(300, 500), (77, 131)])
+def test_k4_plain_matches_pallas(rng, S, T):
+    """d2 as K1's (to 2 ulp of the JAX side); q and n are exactly the
+    winner's point and normal, the masked ones included."""
+    src, tgt, mask = _clouds(rng, S, T)
+    nrm = rng.normal(size=(T, 3)).astype(np.float32)
+    d_ref, q_ref, n_ref = (np.asarray(x) for x in nn_search_pallas_vals(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask),
+        jnp.asarray(nrm), src_block=128, tgt_block=128, interpret=True))
+    d, q, n = nn_search_vals(t(src), t(tgt), t(mask), t(nrm))
+    np.testing.assert_array_max_ulp(d.numpy(), d_ref, maxulp=2)
+    np.testing.assert_array_equal(q.numpy(), q_ref)
+    np.testing.assert_array_equal(n.numpy(), n_ref)
+    i, d1 = nn_search(t(src), t(tgt), t(mask))
+    assert torch.equal(d, d1)
+    np.testing.assert_array_equal(q.numpy(), tgt[i.numpy()])
+    none = np.zeros(T, dtype=bool)
+    d, q, _ = nn_search_vals(t(src), t(tgt), t(none), t(nrm))
+    assert (d.numpy() > 4e14).all()
+    np.testing.assert_array_equal(q.numpy(), np.broadcast_to(tgt[0], q.shape))
+
+
+@pytest.mark.parametrize("S,T", [(300, 500), (77, 131)])
+def test_xla_form_matches_jax_nn_search(rng, S, T):
+    src, tgt, mask = _clouds(rng, S, T)
+    i_ref, d_ref = (np.asarray(x) for x in xla_ref(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask), src_block=64,
+        tgt_block=128))
+    i, d = nn_search_xla(t(src), t(tgt), t(mask), tgt_block=128)
+    u = _unique_rows(src, tgt, mask)
+    assert u.mean() > 0.9
+    np.testing.assert_array_equal(i.numpy()[u], i_ref[u])
+    np.testing.assert_allclose(d.numpy(), d_ref, atol=MATMUL_ATOL)
+    assert (d.numpy() >= 0).all()
+
+
+def test_morton_sort_and_boxes_equal_reference(rng):
+    """Morton keys, the stable sort order, block boxes and box distances
+    are bit-equal to the reference's (the visiting order and so the tie
+    rule depend on them)."""
+    pts = rng.uniform(-20, 20, (600, 3)).astype(np.float32)
+    m = rng.uniform(size=600) > 0.1
+    tgt = rng.uniform(-20, 20, (640, 3)).astype(np.float32)
+    tm = rng.uniform(size=640) > 0.1
+    tm[256:384] = False                 # whole masked runs: empty boxes
+    key_ref = np.asarray(pruned_ref._morton_xy(jnp.asarray(pts), jnp.asarray(m)))
+    np.testing.assert_array_equal(nn_pruned._morton_xy(t(pts), t(m)).numpy(),
+                                  key_ref)
+    boxes = []
+    for p, v in ((pts, m), (tgt, tm)):
+        ps_r, ms_r, o_r = pruned_ref.morton_sort(jnp.asarray(p), jnp.asarray(v), 128)
+        ps, ms, o = nn_pruned.morton_sort(t(p)[None], t(v)[None], 128)
+        np.testing.assert_array_equal(o[0].numpy(), np.asarray(o_r))
+        np.testing.assert_array_equal(ps[0].numpy(), np.asarray(ps_r))
+        lo_r, hi_r = pruned_ref._block_boxes(ps_r, ms_r, 128)
+        lo, hi = nn_pruned._block_boxes(ps, ms, 128)
+        np.testing.assert_array_equal(lo[0].numpy(), np.asarray(lo_r))
+        np.testing.assert_array_equal(hi[0].numpy(), np.asarray(hi_r))
+        boxes.append(((lo, hi), (lo_r, hi_r)))
+    (a, a_r), (b, b_r) = boxes
+    d2 = nn_pruned._box_dist2(*a, *b)[0].numpy()
+    np.testing.assert_array_equal(d2, np.asarray(pruned_ref._box_dist2(*a_r, *b_r)))
+    assert (d2 == 3e24).any() and (d2 == 0).any()
+
+
+@pytest.mark.parametrize("case", ["uniform", "icp_like", "far"])
+def test_k5_plain_matches_pruned_reference(rng, case):
+    """nn_search_pruned of both packages (128-row blocks): within the gate
+    indices equal where unique and d2 within MATMUL_ATOL; beyond it both
+    report d2 > gate^2."""
+    if case == "uniform":
+        src, tgt, tmask = _clouds(rng, 600, 700, scale=12.0, masked=0.1)
+        smask, gate = rng.uniform(size=600) > 0.1, 5.0
+    elif case == "icp_like":
+        tgt = rng.uniform(-30, 30, (512, 3)).astype(np.float32)
+        src = tgt + rng.normal(scale=0.01, size=tgt.shape).astype(np.float32)
+        smask = tmask = np.ones(512, bool)
+        gate = 10.0
+    else:
+        src = rng.uniform(0, 1, (128, 3)).astype(np.float32)
+        tgt = src + np.array([100.0, 0, 0], np.float32)
+        smask = tmask = np.ones(128, bool)
+        gate = 2.0
+    i_ref, d_ref = (np.asarray(x) for x in pruned_ref.nn_search_pruned(
+        jnp.asarray(src), jnp.asarray(smask), jnp.asarray(tgt),
+        jnp.asarray(tmask), gate, src_block=128, tgt_block=128,
+        interpret=True))
+    i, d = (x.numpy() for x in nn_pruned.nn_search_pruned(
+        t(src), t(smask), t(tgt), t(tmask), gate, src_block=128, tgt_block=128))
+    best = ((src[:, None].astype(np.float64) - tgt[None]) ** 2).sum(-1)
+    best[:, ~tmask] = np.inf
+    inside = smask & (best.min(1) <= gate * gate)
+    outside = smask & ~inside
+    u = inside & _unique_rows(src, tgt, tmask)
+    np.testing.assert_array_equal(i[u], i_ref[u])
+    np.testing.assert_allclose(d[inside], d_ref[inside], atol=MATMUL_ATOL)
+    assert (d[outside] > gate * gate * 0.999).all()
+    assert (d_ref[outside] > gate * gate * 0.999).all()
+    assert inside.any() if case != "far" else outside.all()
+
+
+def test_k5_presorted_invalid_rows_and_visits(rng):
+    """Presorted form, batched: invalid source rows come out (0, 0) and
+    never block skipping; the visit count shows far tiles skipped."""
+    a = rng.normal(scale=0.5, size=(2, 384, 3)).astype(np.float32)
+    a[:, 128:256] += 20.0               # two clusters, one 128-row block each
+    sv = np.ones((2, 384), bool)
+    sv[:, 256:] = False                 # invalid rows sort into a third block
+    ss, svv, _ = nn_pruned.morton_sort(t(a), t(sv), 128)
+    ts, tv, _ = nn_pruned.morton_sort(t(a[:, :256]),
+                                      torch.ones((2, 256), dtype=torch.bool), 128)
+    idx, d2 = nn_pruned.nn_search_pruned_presorted(ss, svv, ts, tv, 10.0, 128, 128)
+    inv = ~svv
+    assert (idx[inv] == 0).all() and (d2[inv] == 0).all()
+    np.testing.assert_allclose(d2[svv].numpy(), 0.0, atol=MATMUL_ATOL)
+    perm, tile_d2, t2 = nn_pruned.prepare(ss, svv, ts, tv, 10.0, 128, 128)
+    *_, tiles, rows = nn_pruned.pruned_sweep_plain(ss, svv, ts, t2, perm,
+                                                  tile_d2, 128, 128,
+                                                  count_visits=True)
+    assert tiles == 4 and rows == int(svv.sum())    # the far cluster skipped
+    i1, d1 = nn_pruned.nn_search_pruned_presorted(ss[1], svv[1], ts[1], tv[1],
+                                                  10.0, 128, 128)
+    assert torch.equal(i1, idx[1]) and torch.equal(d1, d2[1])
+    with pytest.raises(ValueError, match="whole blocks"):
+        nn_pruned.nn_search_pruned_presorted(ss[:, :200], svv[:, :200], ts, tv,
+                                             10.0, 128, 128)
+
+
+def test_batched_equals_unbatched_and_cpu_launches_nothing(rng):
+    src = (rng.normal(size=(3, 90, 3)) * 4).astype(np.float32)
+    tgt = (rng.normal(size=(3, 70, 3)) * 4).astype(np.float32)
+    nrm = rng.normal(size=(3, 70, 3)).astype(np.float32)
+    mask = rng.uniform(size=(3, 70)) > 0.2
+    before = dict(_cuda.launch_counts)
+    for impl in ("vpu", "vpu2", "mxu"):
+        ib, db = nn_search(t(src), t(tgt), t(mask), impl)
+        for b in range(3):
+            i, d = nn_search_plain(t(src[b]), t(tgt[b]), t(mask[b]), impl,
+                                   max_elems=1000)
+            assert torch.equal(i, ib[b]) and torch.equal(d, db[b])
+    vb = nn_search_vals(t(src), t(tgt), t(mask), t(nrm))
+    xb = nn_search_xla(t(src), t(tgt), t(mask), tgt_block=32)
+    for b in range(3):
+        v = nn_search_vals(t(src[b]), t(tgt[b]), t(mask[b]), t(nrm[b]))
+        assert all(torch.equal(x, y[b]) for x, y in zip(v, vb))
+        x = nn_search_xla(t(src[b]), t(tgt[b]), t(mask[b]))
+        assert torch.equal(x[0], xb[0][b])
+    assert _cuda.launch_counts == before
+    with pytest.raises(ValueError, match="unknown impl"):
+        nn_search(t(src), t(tgt), t(mask), "vpu3")

@@ -34,6 +34,7 @@ from lidar_slam_arvc_tpu.utils.config import IcpConfig as IcpConfigRef
 from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset
 from lidar_slam_arvc_tpu_torch.pipeline import cli
+from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm
 from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import run_scanmatcher
 from lidar_slam_arvc_tpu_torch.registration import ICPParams, icp, icp_batch
 from lidar_slam_arvc_tpu_torch.utils import synthetic
@@ -153,14 +154,94 @@ def test_icp_options_match_reference(scene, kw):
                                                    abs=1e-4)
 
 
-@pytest.mark.parametrize("nn_impl,item", [("vpu", "K3"), ("mxu", "K3"),
-                                          ("vpu_tq", "K4"), ("pruned", "K5"),
-                                          ("xla", "K1")])
-def test_unported_nn_impl_raises(scene, nn_impl, item):
+@pytest.mark.parametrize("nn_impl", ["vpu", "vpu2", "mxu", "vpu_tq", "pruned",
+                                     "xla"])
+def test_icp_nn_impl_matches_reference(scene, nn_impl):
+    """Every other correspondence search against the reference run with
+    the same nn_impl (its Pallas kernels in interpret mode, its XLA sweep
+    for 'xla'); 'pruned' at the reference's block rows, min(512, src_block)
+    and min(512, tgt_block)."""
+    ci, cj, T_gt = scene
+    T0 = (T_gt @ synthetic._yaw_T(0.1, -0.08, 0.03)).astype(np.float32)
+    pr = PARAMS_REF._replace(nn_impl=nn_impl, src_block=256)
+    ref = icp_ref(cj, ci, jnp.asarray(T0), pr, "point_to_plane")
+    got = icp(_port(cj), _port(ci), torch.from_numpy(T0),
+              ICPParams(**pr._asdict()), "point_to_plane")
+    assert int(got.iterations) > 1
+    _close(got.transform.numpy(), np.asarray(ref.transform),
+           got.iterations, ref.iterations)
+    np.testing.assert_allclose(float(got.fitness), float(ref.fitness),
+                               atol=2e-3)
+
+
+def test_pruned_with_coarse_to_fine_raises_as_reference(scene):
     ci, cj, _ = scene
-    with pytest.raises(NotImplementedError, match=item):
+    pr = PARAMS_REF._replace(nn_impl="pruned", coarse_factor=2,
+                             coarse_iterations=3)
+    with pytest.raises(ValueError) as ref_err:
+        icp_ref(cj, ci, jnp.eye(4), pr)
+    with pytest.raises(ValueError) as err:
+        icp(_port(cj), _port(ci), torch.eye(4), ICPParams(**pr._asdict()))
+    assert str(err.value) == str(ref_err.value)
+
+
+def test_unknown_nn_impl_raises(scene):
+    """A stated difference: the reference takes its XLA sweep for a name
+    it does not know; the port refuses it."""
+    ci, cj, _ = scene
+    with pytest.raises(ValueError, match="unknown nn_impl 'vpu3'"):
         icp(_port(cj), _port(ci), torch.eye(4),
-            PARAMS._replace(nn_impl=nn_impl))
+            PARAMS._replace(nn_impl="vpu3"))
+
+
+@pytest.fixture(scope="module")
+def sequence():
+    """Five consecutive scans of the scene's world, preprocessed once by the
+    JAX package, with noisy relative seeds (pairs i+1 -> i)."""
+    rng = np.random.default_rng(7)
+    # boxes, not pillars: see the dataset fixture below
+    world = synthetic.make_world(rng, extent=20.0, n_ground=6000,
+                                 n_pillars=0, n_boxes=15)
+    T = synthetic.make_trajectory(40, radius=8.0)[:5]
+    clouds = []
+    for Ti in T:
+        c = cl_ref.from_numpy(synthetic.render_scan(world, Ti, rng,
+                                                    max_points=1500), CAP)
+        c = cl_ref.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
+        c = cl_ref.voxel_downsample(c, 0.15)
+        clouds.append(cl_ref.estimate_normals(c, radius=0.4))
+    stack = {f: np.stack([np.asarray(getattr(c, f)) for c in clouds])
+             for f in ("points", "mask", "normals")}
+    seeds = np.stack([np.linalg.inv(T[i]) @ T[i + 1] @ synthetic._yaw_T(
+        0.05, -0.03, 0.01) for i in range(4)]).astype(np.float32)
+    return stack, seeds
+
+
+@pytest.mark.parametrize("nn_impl", ["vpu_t", "pruned"])
+def test_match_all_matches_reference(sequence, nn_impl):
+    """The slice as a whole: the port's match_all against the reference's
+    _match_all_fused (bench.py's matcher) on the same preprocessed scans,
+    pairs and seeds, in groups of 2 at source stride 2."""
+    stack, seeds = sequence
+    idx_src, idx_tgt = np.arange(1, 5), np.arange(0, 4)
+    pr = PARAMS_REF._replace(nn_impl=nn_impl, source_stride=2)
+    ref = sm_ref._match_all_fused(
+        *(jnp.asarray(stack[f]) for f in ("points", "mask", "normals")),
+        jnp.asarray(idx_src), jnp.asarray(idx_tgt), jnp.asarray(seeds), pr,
+        "point_to_plane", 2)
+    got = sm.match_all(*(torch.from_numpy(stack[f])
+                         for f in ("points", "mask", "normals")),
+                       torch.from_numpy(idx_src), torch.from_numpy(idx_tgt),
+                       torch.from_numpy(seeds), ICPParams(**pr._asdict()),
+                       "point_to_plane", 2)
+    _close(got[0].numpy(), np.asarray(ref[0]), got[2], ref[2])
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=2e-3)
+    assert (got[3].numpy() <= PARAMS.convergence_tol).all()
+    with pytest.raises(ValueError, match="whole groups"):
+        sm.match_all(*(torch.from_numpy(stack[f])
+                       for f in ("points", "mask", "normals")),
+                     torch.from_numpy(idx_src[:3]), torch.from_numpy(idx_tgt[:3]),
+                     torch.from_numpy(seeds[:3]), ICPParams(), "point_to_plane", 2)
 
 
 @pytest.fixture(scope="module")
