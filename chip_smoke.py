@@ -9,7 +9,8 @@ line each, and exits non-zero on any failure:
 2. K1 (csrc/nn_sweep.cu) vs its plain PyTorch version on the card: batch
    4 at S=2048/T=8192 and S=T=8192, plus a ragged 77 x 131 case, ~30%
    masked targets and duplicated targets (ties).  Indices equal, d2
-   bit-equal.  Times of both.
+   bit-equal.  Times of both and the launch geometry (grid, cluster size =
+   the split of the target axis, sources per thread).
 3. K2 (csrc/ball_moments.cu) vs its plain version: 4 voxelised synthetic
    scans at capacity 8192, r = 0.5, plus a ragged case.  Counts exact;
    S1/S2 within the summation-order bound ``ops.moments.summation_tolerance``.
@@ -19,11 +20,12 @@ line each, and exits non-zero on any failure:
    K2's launch counts, ATE < 0.2 m against ground truth.
 5. K3 (csrc/nn_sweep.cu, d2 forms vpu / vpu2 / mxu) and K4
    (csrc/nn_sweep_vals.cu) vs their plain versions at phase 2's shapes:
-   indices equal, d2 bit-equal, K4's q and n equal.
+   indices equal, d2 bit-equal, K4's q and n equal; geometry as phase 2.
+   Fails if the grid at B=4, S=2048, T=8192 has fewer than 132 CTAs.
 6. K5 (csrc/nn_pruned.cu) vs its plain version on 4 voxelised scan pairs
    at capacity 8192, source stride 4, gate 10 m, plus a ragged case: idx
    equal, d2 bit-equal; within the gate d2 agrees with K1's and the index
-   is K1's wherever that nearest neighbour is unique.
+   is K1's wherever that nearest neighbour is unique; geometry.
 7. stage 1 under every nn_impl: phase 4's dataset preprocessed once, then
    ``pipeline.scanmatcher.match_all`` (bench.py's matcher: batch 4, 30
    iterations, tol 1e-4, gate 10 m, source stride 4) with nn_impl auto
@@ -31,13 +33,21 @@ line each, and exits non-zero on any failure:
    launch counts set to 0 just before and read just after: relative
    transforms within 1e-3 m / 1e-3 rad of the K1 run, ATE < 0.2 m, no pair
    fallen back to its seed, its kernel launched.
+   Then "phase 2/5/6 profile" lines: the CUDA kernels one wrapper call of
+   each phase launches and their device time, from torch.profiler traces
+   taken only now, after every timed phase: a profiler session stays
+   attached and slows every later launch from the host, and with it the
+   host-bound ICP runs.  Fails if a sweep call launches other than one
+   kernel or a K5 call more than two.
 8. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
-nvidia-smi reports them and one JSON line of per-kernel results: time,
-plain-version time and the bound (the larger of the bytes the function
-must move over the HBM rate and its FP32 operations over the FP32 peak,
-NVIDIA's H100 SXM data sheet), from this run's inputs.
+nvidia-smi reports them and one JSON line of per-kernel results: time of
+the wrapper (CUDA events over back-to-back calls), plain-version time and
+the bound (the larger of the bytes the function must move over the HBM
+rate and its FP32 operations over the FP32 peak, NVIDIA's H100 SXM data
+sheet), from this run's inputs.  The sweeps need sm_90a (thread block
+clusters).
 """
 
 import json
@@ -59,7 +69,7 @@ from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
-    _target_aux, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
+    nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams  # noqa: E402
@@ -85,6 +95,10 @@ FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores
 NN_IMPLS = {"auto": "nn_sweep", "vpu": "nn_sweep_vpu", "vpu2": "nn_sweep_vpu2",
             "mxu": "nn_sweep_mxu", "vpu_tq": "nn_sweep_vals",
             "pruned": "nn_pruned"}
+MIN_SWEEP_CTAS = 132        # the H100 SXM's SMs: the S2048 sweep must fill them
+MAX_K5_LAUNCHES = 2         # kernels one K5 call may launch (its preparation included)
+PROFILE_REPS = 20           # wrapper calls per torch.profiler trace
+PROFILE_ATTEMPTS = 3        # traces taken before an empty one fails
 
 
 def fail(msg: str) -> None:
@@ -105,6 +119,67 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_profile(fn, reps: int = PROFILE_REPS):
+    """(CUDA kernels per call of ``fn``, their device ms per call, kernels
+    recorded), from a torch.profiler trace of ``reps`` calls after one
+    warm-up.  The trace can miss a record (9 of 10 in one run), so the
+    count per call is the recorded count over ``reps``, rounded, and the
+    time per call is the mean time per recorded kernel times that count.
+    The first trace of a process has come back empty (once, with the
+    kernels just built), so an empty trace is taken again, up to
+    PROFILE_ATTEMPTS traces; fails when none holds device activity."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    else:
+        fail(f"torch.profiler recorded no device activity in "
+             f"{PROFILE_ATTEMPTS} traces")
+    per_call = round(len(kernels) / reps)
+    per_kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / len(kernels) / 1e3
+    return per_call, per_kernel_ms * per_call, len(kernels)
+
+
+# (phase, label, call, most kernels a call may launch), profiled after phase 7
+PROFILES = []
+
+
+def profile_later(phase: int, label: str, fn, max_kernels: int) -> None:
+    PROFILES.append((phase, label, fn, max_kernels))
+
+
+def phase_profiles():
+    """The registered wrapper calls under torch.profiler, one line per
+    phase; fails on a call that launches no kernel or too many."""
+    lines = {}
+    for phase, label, fn, max_kernels in PROFILES:
+        n, dev_ms, rec = kernel_profile(fn)
+        if not 1 <= n <= max_kernels:
+            fail(f"phase {phase} {label}: {n} kernels per call, expected 1"
+                 + (f" to {max_kernels}" if max_kernels > 1 else ""))
+        lines.setdefault(phase, []).append(
+            f"{label}: {n} kernel(s) per call ({rec} in {PROFILE_REPS}), "
+            f"device {dev_ms:.4f} ms")
+    for phase, items in sorted(lines.items()):
+        print(f"phase {phase} profile (torch.profiler, after phase 7): "
+              + "; ".join(items))
+
+
+def geometry_text(g: dict) -> str:
+    per = (f"{g['rows_per_thread']} sources/thread" if "rows_per_thread" in g
+           else f"{g['rows_per_cta']} rows/CTA on {g['threads_per_row']} threads each")
+    return (f"grid {g['grid'][0]}x{g['grid'][1]} = {g['grid'][0] * g['grid'][1]} "
+            f"CTAs of {g['threads']} threads, cluster {g['cluster']}, {per}")
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -194,13 +269,15 @@ def phase_k1(cases):
         reps = 20 if S * T >= 2 ** 24 else 50
         results[tag] = (cuda_ms(lambda: nn_search(s, t, m), reps),
                         cuda_ms(lambda: nn_search_plain(s, t, m), 5),
-                        _sweep_bound(s, t, m, 8, outs=(i_k, d_k)))
+                        _sweep_bound(s, t, m, 8, outs=(i_k, d_k)),
+                        _cuda.sweep_geometry(B, S, T, s.device))
+        profile_later(2, f"nn_sweep {tag}", lambda s=s, t=t, m=m: nn_search(s, t, m), 1)
     print("phase 2 K1 nn_sweep vs plain: indices equal, d2 bit-equal; "
-          + "; ".join(f"B=4 {tag}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-                      f"bound {b[0]:.4f} ms ({b[1]})"
-                      for tag, (k, p, b) in results.items()))
+          + "; ".join(f"B=4 {tag}: wrapper {k:.4f} ms, plain {p:.4f} ms, "
+                      f"bound {b[0]:.4f} ms ({b[1]}); {geometry_text(g)}"
+                      for tag, (k, p, b, g) in results.items()))
     # K1's main path is phase 4 (source stride 1): S = T = 8192
-    k, p, (b, by) = results["S8192"]
+    k, p, (b, by), *_ = results["S8192"]
     return {"max_abs_err": max_err, "ms": k, "plain_ms": p, "bound_ms": b,
             "bound_by": by, "all": results}
 
@@ -335,8 +412,9 @@ def phase_k3_k4(cases):
             flops = {"vpu": 9, "vpu2": 8, "mxu": 7}[impl]
             times[tag] = (cuda_ms(lambda: nn_search(s, t, m, impl), reps),
                           cuda_ms(lambda: nn_search_plain(s, t, m, impl), 5),
-                          _sweep_bound(s, t, m, flops, outs=(i_k, d_k)),
-                          cuda_ms(lambda: _target_aux(t, m, impl), reps))
+                          _sweep_bound(s, t, m, flops, outs=(i_k, d_k)))
+            profile_later(5, f"{key} {tag}",
+                          lambda s=s, t=t, m=m, impl=impl: nn_search(s, t, m, impl), 1)
         out[key] = times, max_err
     max_err, times = 0.0, {}
     for tag, s, t, m, n in cases:
@@ -352,18 +430,30 @@ def phase_k3_k4(cases):
         reps = 20 if s.shape[1] * t.shape[1] >= 2 ** 24 else 50
         times[tag] = (cuda_ms(lambda: nn_search_vals(s, t, m, n), reps),
                       cuda_ms(lambda: nn_search_vals_plain(s, t, m, n), 5),
-                      _sweep_bound(s, t, m, 8, extra_in=(n,), outs=got), 0.0)
+                      _sweep_bound(s, t, m, 8, extra_in=(n,), outs=got))
+        profile_later(5, f"nn_sweep_vals {tag}",
+                      lambda s=s, t=t, m=m, n=n: nn_search_vals(s, t, m, n), 1)
     out["nn_sweep_vals"] = times, max_err
+    # every form and K4 launch with the one geometry of nn_sweep.cuh
+    geo = {tag: _cuda.sweep_geometry(*s.shape[:2], t.shape[1], s.device)
+           for tag, s, t, *_ in cases}
     print("phase 5 K3 nn_sweep (vpu, vpu2, mxu) and K4 nn_sweep_vals vs plain: "
-          "indices equal, d2 bit-equal, K4 q and n equal; " + "; ".join(
-              f"{key} {tag}: kernel {k:.4f} ms (of it the per-target row "
-              f"{a:.4f} ms), plain {p:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
+          "indices equal, d2 bit-equal, K4 q and n equal; launch geometry "
+          "(every form): " + "; ".join(f"{tag} {geometry_text(g)}"
+                                       for tag, g in geo.items()) + "; "
+          + "; ".join(
+              f"{key} {tag}: wrapper {k:.4f} ms, plain {p:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]})"
               for key, (times, _) in out.items()
-              for tag, (k, p, b, a) in times.items()))
+              for tag, (k, p, b) in times.items()))
+    g = geo["S2048"]
+    if g["grid"][0] * g["grid"][1] < MIN_SWEEP_CTAS:
+        fail(f"the sweep's grid at B=4, S=2048, T=8192 has "
+             f"{g['grid'][0] * g['grid'][1]} CTAs, fewer than {MIN_SWEEP_CTAS}")
     # the main path of K3 and K4 is phase 7 (source stride 4): S=2048, T=8192
     res = {}
     for key, (times, err) in out.items():
-        k, p, (b, by), _ = times["S2048"]
+        k, p, (b, by) = times["S2048"]
         res[key] = {"max_abs_err": err, "ms": k, "plain_ms": p,
                     "bound_ms": b, "bound_by": by}
     return res
@@ -420,21 +510,23 @@ def phase_k5(rng, dev):
             ss, sv, ts, t2, perm, tile_d2, 512, 512, count_visits=True)
         n_all = perm.numel()
         b = bound_ms(nbytes(ss, sv, ts, tv, i_k, d_k), 7.0 * rows * 512)
+        def call(ss=ss, sv=sv, ts=ts, tv=tv):
+            return nn_pruned.nn_search_pruned_presorted(ss, sv, ts, tv, GATE)
+        profile_later(6, f"nn_pruned {tag}", call, MAX_K5_LAUNCHES)
+        geo = _cuda.pruned_geometry(*ss.shape[:2], ts.shape[1], 512, 512, ss.device)
         times[tag] = (
-            cuda_ms(lambda: nn_pruned.nn_search_pruned_presorted(ss, sv, ts, tv, GATE), 50),
+            cuda_ms(call, 50),
             cuda_ms(lambda: nn_pruned.nn_search_pruned_presorted_plain(
-                ss, sv, ts, tv, GATE), 5),
-            cuda_ms(lambda: nn_pruned.prepare(ss, sv, ts, tv, GATE, 512, 512), 50), b)
+                ss, sv, ts, tv, GATE), 5), b)
         max_err = max(max_err, float((d_k - d_p).abs().max()))
         notes.append(f"{tag} B={ss.shape[0]} Sp={ss.shape[1]} Tp={ts.shape[1]}: "
                      f"{int(inside.sum())} rows within the gate, max |d2 - K1 d2| "
                      f"{err_in:.3g}, {int(differ.sum())} near-tie indices "
-                     f"differ from K1's; {tiles} of {n_all} tiles scored; kernel "
-                     f"{times[tag][0]:.4f} ms (of it preparation "
-                     f"{times[tag][2]:.4f} ms), plain {times[tag][1]:.4f} ms, "
-                     f"bound {b[0]:.4f} ms ({b[1]})")
+                     f"differ from K1's; {tiles} of {n_all} tiles scored; wrapper "
+                     f"{times[tag][0]:.4f} ms, plain {times[tag][1]:.4f} ms, "
+                     f"bound {b[0]:.4f} ms ({b[1]}); {geometry_text(geo)}")
     print("phase 6 K5 nn_pruned vs plain: idx equal, d2 bit-equal; " + "; ".join(notes))
-    k, p, _, (b, by) = times["scans"]
+    k, p, (b, by) = times["scans"]
     return {"max_abs_err": max_err, "ms": k, "plain_ms": p, "bound_ms": b,
             "bound_by": by}
 
@@ -521,6 +613,7 @@ def main():
         res.update(phase_k3_k4(cases))
         res["nn_pruned"] = phase_k5(rng, dev)
         launches = phase_nn_impls(d, T_gt, dev)
+    phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1
     launches.update(nn_sweep=stage1["nn_sweep"],
                     ball_moments=stage1["ball_moments"])

@@ -16,21 +16,13 @@
 //     t2 - 2 (s . t) with t2 = |t|^2 + pen, then d2 = max(best + |s|^2, 0)
 //     (a masked winner reports ~1e12).  s . t = (sx*tx + sy*ty) + sz*tz in
 //     plain f32: no tensor cores, no TF32.
-// The wrapper computes the per-target pen and t2 rows outside the kernel,
-// as the JAX wrapper does.
+// The per-target pen and t2 rows, which the JAX wrapper builds outside its
+// kernel, are formed here while each target tile is staged.
 //
-// Bound on this card: FP32 instruction throughput.  Each (source, target)
-// pair costs 8 (sentinel), 9 (penalty) or 7 (matmul) rounded f32
-// operations plus a compare and a select, and S*T pairs are scored (8192^2
-// per pair of scans at full source resolution); nothing is read from
-// device memory but the clouds.  Tensor cores do not apply (the
-// contraction depth is 3).  The leading batch dimension is the grid's y
-// axis, so one launch serves a whole ICP group.
-//
-// Not yet done (later work): several sources per thread to amortise the
-// shared-memory loads, TMA staging, and splitting the target axis across
-// blocks when S is small (at S = 2048, B = 4 the grid is 64 blocks on 132
-// SMs).
+// What bounds it and what the design does about it: nn_sweep.cuh (FP32
+// issue; two running bests per source, the target axis split across a
+// cluster, double-buffered tiles).  The leading batch dimension is the
+// grid's y axis, so one launch serves a whole ICP group.
 
 #include "nn_sweep.cuh"
 
@@ -41,56 +33,53 @@ using namespace nn_sweep;
 template <int F>
 __global__ void __launch_bounds__(kThreads)
 nn_sweep_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-                const uint8_t* __restrict__ tmask, const float* __restrict__ aux,
-                int S, int T, int32_t* __restrict__ out_idx, float* __restrict__ out_d2) {
-  const int b = blockIdx.y;
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  src += static_cast<size_t>(b) * S * 3;
-  tgt += static_cast<size_t>(b) * T * 3;
-  tmask += static_cast<size_t>(b) * T;
-  if (aux != nullptr) aux += static_cast<size_t>(b) * T;
-
-  float p[3], best;
-  int best_i;
-  sweep<F>(src, tgt, tmask, aux, S, T, s, p, &best, &best_i);
-  if (s < S) {
-    if constexpr (F == kMatmulForm) {
-      const float s2 = __fadd_rn(__fadd_rn(__fmul_rn(p[0], p[0]), __fmul_rn(p[1], p[1])),
-                                 __fmul_rn(p[2], p[2]));
-      best = fmaxf(__fadd_rn(best, s2), 0.f);
-    }
-    out_idx[static_cast<size_t>(b) * S + s] = best_i;
-    out_d2[static_cast<size_t>(b) * S + s] = best;
-  }
+                const uint8_t* __restrict__ tmask, int S, int T, int chunk,
+                int32_t* __restrict__ out_idx, float* __restrict__ out_d2) {
+  const Outputs out{out_idx, out_d2, nullptr, nullptr, nullptr};
+  sweep<F, false>(src, tgt, tmask, S, T, chunk, out);
 }
 
 template <int F>
-int launch(const float* src, const float* tgt, const uint8_t* tmask, const float* aux,
-           int B, int S, int T, int32_t* idx, float* d2, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (F != kSentinelForm && aux == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kThreads - 1) / kThreads, B);
-  nn_sweep_kernel<F><<<grid, kThreads, 0, stream>>>(src, tgt, tmask, aux, S, T, idx, d2);
-  return static_cast<int>(cudaGetLastError());
+int launch(const float* src, const float* tgt, const uint8_t* tmask, int B, int S, int T,
+           int n_sm, int32_t* idx, float* d2, cudaStream_t stream) {
+  const Geometry g = geometry(B, S, T, n_sm);
+  return static_cast<int>(launch_clustered(nn_sweep_kernel<F>, g, B, stream, src, tgt,
+                                           tmask, S, T, g.chunk, idx, d2));
 }
 
 }  // namespace
 
+// The launch geometry of nn_sweep_launch and nn_sweep_vals_launch for
+// these sizes on a card of n_sm SMs: out[0..5] = grid x, grid y, cluster
+// size (the target-axis split), targets per CTA, threads per CTA, sources
+// per thread.
+extern "C" void nn_sweep_geometry(int B, int S, int T, int n_sm, int* out) {
+  const Geometry g = geometry(B, S, T, n_sm);
+  out[0] = g.blocks * g.split;
+  out[1] = B;
+  out[2] = g.split;
+  out[3] = g.chunk;
+  out[4] = kThreads;
+  out[5] = kRows;
+}
+
 // src (B,S,3) f32, tgt (B,T,3) f32, tmask (B,T) uint8/bool, all
 // contiguous on one device; idx (B,S) int32 and d2 (B,S) f32 are written.
-// form: 0 = sentinel (K1 vpu_t, K3 vpu2; aux unread), 1 = penalty (K3 vpu,
-// aux = pen (B,T) f32), 2 = matmul (K3 mxu, aux = t2 (B,T) f32).  Returns
-// cudaGetLastError() after the launch.
+// form: 0 = sentinel (K1 vpu_t, K3 vpu2), 1 = penalty (K3 vpu), 2 = matmul
+// (K3 mxu).  n_sm: the card's SM count (sets the split).  Returns the
+// launch's CUDA error.
 extern "C" int nn_sweep_launch(int form, const float* src, const float* tgt,
-                               const uint8_t* tmask, const float* aux, int B, int S,
-                               int T, int32_t* idx, float* d2, cudaStream_t stream) {
+                               const uint8_t* tmask, int B, int S, int T, int n_sm,
+                               int32_t* idx, float* d2, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || T <= 0 || n_sm <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (form) {
     case kSentinelForm:
-      return launch<kSentinelForm>(src, tgt, tmask, nullptr, B, S, T, idx, d2, stream);
+      return launch<kSentinelForm>(src, tgt, tmask, B, S, T, n_sm, idx, d2, stream);
     case kPenaltyForm:
-      return launch<kPenaltyForm>(src, tgt, tmask, aux, B, S, T, idx, d2, stream);
+      return launch<kPenaltyForm>(src, tgt, tmask, B, S, T, n_sm, idx, d2, stream);
     case kMatmulForm:
-      return launch<kMatmulForm>(src, tgt, tmask, aux, B, S, T, idx, d2, stream);
+      return launch<kMatmulForm>(src, tgt, tmask, B, S, T, n_sm, idx, d2, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

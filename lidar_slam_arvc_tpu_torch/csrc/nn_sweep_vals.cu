@@ -11,12 +11,14 @@
 //
 // The TPU kernel selects the winner's values with a one-hot matmul per tile
 // on its otherwise idle matrix unit.  Here that would cost a tile of extra
-// work for what is one indexed read: the block tracks the best index as
-// K1 does and, after the sweep, each thread reads its winner's six floats
-// from device memory (L2-resident: the target cloud is 96 KB per scan).
+// work for what is one indexed read: the sweep tracks the best index as
+// K1 does and, after the cluster's merge, the epilogue reads the merged
+// winner's six floats from device memory (L2-resident: the target cloud
+// is 96 KB per scan).
 //
-// Bound on this card: FP32 instruction throughput, as K1; the epilogue adds
-// 24 bytes read and 28 bytes written per source point.
+// Bound on this card: FP32 instruction issue, as K1 (nn_sweep.cuh, with
+// K1's geometry); the epilogue adds 24 bytes read and 28 bytes written per
+// source point.
 
 #include "nn_sweep.cuh"
 
@@ -27,42 +29,26 @@ using namespace nn_sweep;
 __global__ void __launch_bounds__(kThreads)
 nn_sweep_vals_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                      const uint8_t* __restrict__ tmask,
-                     const float* __restrict__ normals, int S, int T,
+                     const float* __restrict__ normals, int S, int T, int chunk,
                      float* __restrict__ out_d2, float* __restrict__ out_q,
                      float* __restrict__ out_n) {
-  const int b = blockIdx.y;
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  src += static_cast<size_t>(b) * S * 3;
-  tgt += static_cast<size_t>(b) * T * 3;
-  tmask += static_cast<size_t>(b) * T;
-  normals += static_cast<size_t>(b) * T * 3;
-
-  float p[3], best;
-  int best_i;
-  sweep<kSentinelForm>(src, tgt, tmask, nullptr, S, T, s, p, &best, &best_i);
-  if (s < S) {
-    const size_t o = static_cast<size_t>(b) * S + s;
-    out_d2[o] = best;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      out_q[3 * o + a] = tgt[3 * best_i + a];
-      out_n[3 * o + a] = normals[3 * best_i + a];
-    }
-  }
+  const Outputs out{nullptr, out_d2, normals, out_q, out_n};
+  sweep<kSentinelForm, true>(src, tgt, tmask, S, T, chunk, out);
 }
 
 }  // namespace
 
 // src (B,S,3), tgt (B,T,3), normals (B,T,3) f32, tmask (B,T) uint8/bool,
 // all contiguous on one device; d2 (B,S), q (B,S,3) and n (B,S,3) f32 are
-// written.  Returns cudaGetLastError() after the launch.
+// written.  n_sm: the card's SM count (sets the split, as
+// nn_sweep_geometry reports it).  Returns the launch's CUDA error.
 extern "C" int nn_sweep_vals_launch(const float* src, const float* tgt,
                                     const uint8_t* tmask, const float* normals,
-                                    int B, int S, int T, float* d2, float* q,
+                                    int B, int S, int T, int n_sm, float* d2, float* q,
                                     float* n, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kThreads - 1) / kThreads, B);
-  nn_sweep_vals_kernel<<<grid, kThreads, 0, stream>>>(src, tgt, tmask, normals, S, T,
-                                                      d2, q, n);
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || B > 65535 || S <= 0 || T <= 0 || n_sm <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = geometry(B, S, T, n_sm);
+  return static_cast<int>(launch_clustered(nn_sweep_vals_kernel, g, B, stream, src, tgt,
+                                           tmask, normals, S, T, g.chunk, d2, q, n));
 }

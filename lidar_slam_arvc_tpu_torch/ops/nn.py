@@ -25,9 +25,11 @@ counterpart of ``lidar_slam_arvc_tpu/ops/nn.py::nn_search``, the JAX
 package's matmul-form sweep: plain PyTorch there and here, no kernel.
 
 ``nn_search`` and ``nn_search_vals`` launch ``csrc/nn_sweep.cu`` and
-``csrc/nn_sweep_vals.cu`` for CUDA tensors (see the sources for what bounds
-them on an H100) and run the plain versions for CPU tensors.  A CUDA
-tensor never reaches a plain version: a build or launch failure raises.
+``csrc/nn_sweep_vals.cu`` for CUDA tensors, one kernel per call (see
+``csrc/nn_sweep.cuh`` for what bounds them on an H100 and how the launch
+splits the target axis across a cluster), and run the plain versions for
+CPU tensors.  A CUDA tensor never reaches a plain version: a build or
+launch failure raises.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def _sq_norm(p: torch.Tensor) -> torch.Tensor:
 
 def _target_aux(tgt, tgt_mask, impl):
     """The per-target row the JAX wrapper builds outside its kernel: the
-    penalty (``vpu``) or t2 = |t|^2 + penalty (``mxu``); None otherwise."""
+    penalty (``vpu``) or t2 = |t|^2 + penalty (``mxu``); None otherwise.
+    The kernels form it while staging each target tile."""
     if impl not in ("vpu", "mxu"):
         return None
     pen = torch.where(tgt_mask, 0.0, BIG).to(torch.float32)
@@ -81,7 +84,8 @@ def nn_search_plain(src: torch.Tensor, tgt: torch.Tensor,
     Chunks of targets keep the (B, S, chunk) score tensor under
     ``max_elems``; across chunks the running best is replaced only on a
     strict <, and within a chunk ``min`` returns the first minimum, so
-    ties go to the lowest index as in the kernels."""
+    ties go to the lowest index whatever the chunking, as in the kernels
+    (which merge the target ranges of a cluster by the same rule)."""
     if impl not in FORMS:
         raise ValueError(f"unknown impl {impl!r} ({'|'.join(FORMS)})")
     src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
@@ -150,15 +154,13 @@ def nn_search(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
     src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
     B, S, T, dev = _require_cloud("nn_search", src, tgt, tgt_mask)
     form, key = FORMS[impl]
-    aux = _target_aux(tgt, tgt_mask, impl)
-    idx = torch.empty((B, S), dtype=torch.int32, device=dev)
-    d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
+    idx, d2 = _cuda.idx_d2_outputs(B, S, dev)
     lib = _cuda.library()
-    with torch.cuda.device(dev):
+    with _cuda.on_device(dev):
         err = lib.nn_sweep_launch(
-            form, src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
-            None if aux is None else aux.data_ptr(), B, S, T, idx.data_ptr(),
-            d2.data_ptr(), _cuda.stream_of(src))
+            form, src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(), B, S,
+            T, _cuda.sm_count(dev), idx.data_ptr(), d2.data_ptr(),
+            _cuda.stream_of(src))
     _cuda.check(err, key)
     _cuda.launch_counts[key] += 1
     return _unbatched((idx, d2), batched)
@@ -193,15 +195,18 @@ def nn_search_vals(src: torch.Tensor, tgt: torch.Tensor,
         src, tgt, tgt_mask, tgt_normals)
     B, S, T, dev = _require_cloud("nn_search_vals", src, tgt, tgt_mask,
                                   (("tgt_normals", tgt_normals),))
-    d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
-    q = torch.empty((B, S, 3), dtype=torch.float32, device=dev)
-    n = torch.empty((B, S, 3), dtype=torch.float32, device=dev)
+    # one allocation for the three outputs (the wrapper's host time is
+    # the call's time at S = 2048); each is a contiguous view of it
+    buf = torch.empty(7 * B * S, dtype=torch.float32, device=dev)
+    d2 = buf[:B * S].view(B, S)
+    q = buf[B * S:4 * B * S].view(B, S, 3)
+    n = buf[4 * B * S:].view(B, S, 3)
     lib = _cuda.library()
-    with torch.cuda.device(dev):
+    with _cuda.on_device(dev):
         err = lib.nn_sweep_vals_launch(
             src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
-            tgt_normals.data_ptr(), B, S, T, d2.data_ptr(), q.data_ptr(),
-            n.data_ptr(), _cuda.stream_of(src))
+            tgt_normals.data_ptr(), B, S, T, _cuda.sm_count(dev),
+            d2.data_ptr(), q.data_ptr(), n.data_ptr(), _cuda.stream_of(src))
     _cuda.check(err, "nn_sweep_vals")
     _cuda.launch_counts["nn_sweep_vals"] += 1
     return _unbatched((d2, q, n), batched)

@@ -10,18 +10,20 @@ d2 > gate^2 (gated ICP discards them either way).  d2 is the matmul form
 ``max(|t|^2 + pen - 2 s.t + |s|^2, 0)``; a masked winner reports ~1e12.
 
 Both clouds are sorted by a 2-D Morton key so that fixed blocks of points
-are spatially compact (``morton_sort``, hoisted out of the ICP loop); per
-call, plain PyTorch computes the block boxes, the lower bounds on the
-squared distance of every (source block, target block) pair, pushed to
-1e12 beyond the gate, and each source block's nearest-first visiting
-order (a stable argsort: among equal bounds the lower block comes first,
-and across blocks the earlier-visited block wins a distance tie).
-Everything takes a leading batch (pair) axis.
+are spatially compact (``morton_sort``, hoisted out of the ICP loop).  Per
+call come the block boxes, the lower bounds on the squared distance of
+every (source block, target block) pair, pushed to 1e12 beyond the gate,
+and each source block's nearest-first visiting order (a stable argsort:
+among equal bounds the lower block comes first, and across blocks the
+earlier-visited block wins a distance tie).  Everything takes a leading
+batch (pair) axis.
 
 ``nn_search_pruned_presorted`` launches ``csrc/nn_pruned.cu`` for CUDA
-tensors and runs ``nn_search_pruned_presorted_plain`` for CPU tensors.  A
-CUDA tensor never reaches the plain version: a build or launch failure
-raises.
+tensors: one kernel per call, which does that preparation itself (rank
+counting in place of the argsort).  For CPU tensors it runs
+``nn_search_pruned_presorted_plain`` (``prepare`` in torch, then
+``pruned_sweep_plain``).  A CUDA tensor never reaches the plain version:
+a build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from lidar_slam_arvc_tpu_torch.ops.nn import BIG, _batched, _sq_norm, _unbatched
 NEG = -1e12
 MAX_SRC_BLOCK = 1024    # kMaxRows in nn_pruned.cu
 MAX_TGT_BLOCK = 2048    # kMaxTile in nn_pruned.cu
+MAX_TGT_BLOCKS = 1024   # kMaxTgtBlocks in nn_pruned.cu
 
 
 def _morton_xy(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -95,13 +98,16 @@ def _box_dist2(lo_a, hi_a, lo_b, hi_b):
 
 
 def prepare(ss, sv, ts, tv, gate: float, src_block: int, tgt_block: int):
-    """The per-call preparation outside the kernel, as in the reference:
+    """The per-call preparation of the plain version, as the reference
+    runs it outside its kernel (the CUDA kernel does the same inside):
     (perm, tile_d2, t2).  perm (B, n_i, n_j) int32 visits each source
     block's target blocks nearest-first; tile_d2 (B, n_i, n_j) f32 are
     their box bounds in that order; t2 (B, Tp) = |t|^2 + (0 or 1e12)."""
     d2 = _box_dist2(*_block_boxes(ss, sv, src_block),
                     *_block_boxes(ts, tv, tgt_block))
-    d2 = torch.where(d2 > gate * gate, BIG, d2)          # gate pre-prune
+    # gate pre-prune: an f32 tensor against a Python float compares in
+    # f32, against gate * gate rounded to f32 (the kernel's gate2)
+    d2 = torch.where(d2 > gate * gate, BIG, d2)
     perm = torch.argsort(d2, dim=-1, stable=True)
     tile_d2 = torch.take_along_dim(d2, perm, dim=-1)
     t2 = _sq_norm(ts) + torch.where(tv, 0.0, BIG)
@@ -200,15 +206,16 @@ def nn_search_pruned_presorted(ss: torch.Tensor, sv: torch.Tensor,
     if Sp == 0 or Tp == 0:
         raise ValueError("nn_search_pruned: empty source or target cloud")
     _check_blocks(Sp, Tp, src_block, tgt_block)
-    perm, tile_d2, t2 = prepare(ss, sv, ts, tv, gate, src_block, tgt_block)
-    idx = torch.empty((B, Sp), dtype=torch.int32, device=dev)
-    d2 = torch.empty((B, Sp), dtype=torch.float32, device=dev)
+    if Tp // tgt_block > MAX_TGT_BLOCKS:
+        raise ValueError(f"nn_search_pruned: {Tp // tgt_block} target blocks, "
+                         f"at most {MAX_TGT_BLOCKS}: use larger blocks")
+    idx, d2 = _cuda.idx_d2_outputs(B, Sp, dev)
     lib = _cuda.library()
-    with torch.cuda.device(dev):
+    with _cuda.on_device(dev):
         err = lib.nn_pruned_launch(
-            ss.data_ptr(), sv.data_ptr(), ts.data_ptr(), t2.data_ptr(),
-            perm.data_ptr(), tile_d2.data_ptr(), B, Sp, Tp, src_block,
-            tgt_block, idx.data_ptr(), d2.data_ptr(), _cuda.stream_of(ss))
+            ss.data_ptr(), sv.data_ptr(), ts.data_ptr(), tv.data_ptr(), B,
+            Sp, Tp, src_block, tgt_block, gate * gate, _cuda.sm_count(dev),
+            idx.data_ptr(), d2.data_ptr(), _cuda.stream_of(ss))
     _cuda.check(err, "nn_pruned")
     _cuda.launch_counts["nn_pruned"] += 1
     return _unbatched((idx, d2), batched)

@@ -3,10 +3,14 @@
     python -m lidar_slam_arvc_tpu_torch.utils.sass
 
 Builds the kernel library (``ops._cuda``), disassembles it with
-``cuobjdump -sass`` and prints, per kernel, its instruction count and the
+``cuobjdump -sass`` and prints, per kernel, its instruction count, the
 opcode histogram of its largest loop (the body between a backward branch
-and its target).  That loop is the sweep's unrolled inner loop, so its FP32
-instructions per scored pair are what a kernel's operation bound rests on.
+and its target), and its hot loop: the loop with the largest share of
+FP32 arithmetic (FADD/FMUL/FFMA), the unrolled inner loop of a sweep.
+There every scored pair updates its running best with one select (FSEL
+after its compare), so the hot loop's instructions over its FSELs are the
+issue slots a pair costs, what a kernel's issue-rate bound rests on (4
+warp-instructions a cycle an SM).
 Needs the CUDA toolkit (``cuobjdump`` beside ``nvcc``); no card.
 """
 
@@ -56,9 +60,9 @@ def parse(sass: str) -> dict:
     return funcs
 
 
-def largest_loop(func: dict):
-    """(instructions of the largest backward-branch body) or []."""
-    best = []
+def loops(func: dict) -> list[list[str]]:
+    """The instructions of every backward-branch body."""
+    out = []
     for addr, text in func["insns"]:
         m = _TARGET.search(text)
         if not m:
@@ -66,10 +70,24 @@ def largest_loop(func: dict):
         tgt = func["labels"].get(m.group(1)) if m.group(1) else int(m.group(2), 16)
         if tgt is None or tgt >= addr:
             continue
-        body = [t for a, t in func["insns"] if tgt <= a <= addr]
-        if len(body) > len(best):
-            best = body
-    return best
+        out.append([t for a, t in func["insns"] if tgt <= a <= addr])
+    return out
+
+
+def largest_loop(func: dict):
+    """(instructions of the largest backward-branch body) or []."""
+    return max(loops(func), key=len, default=[])
+
+
+def _fp32_share(body: list[str]) -> float:
+    return sum(_opcode(t).split(".")[0] in ("FADD", "FMUL", "FFMA")
+               for t in body) / len(body)
+
+
+def hot_loop(func: dict):
+    """(instructions of the loop with the largest FP32-arithmetic share,
+    the smallest on a tie) or []."""
+    return max(loops(func), key=lambda b: (_fp32_share(b), -len(b)), default=[])
 
 
 def main() -> int:
@@ -81,8 +99,15 @@ def main() -> int:
     for name, func in parse(out).items():
         loop = largest_loop(func)
         hist = collections.Counter(_opcode(t) for t in loop)
+        hot = hot_loop(func)
+        pairs = sum(_opcode(t) == "FSEL" for t in hot)
+        hot_hist = collections.Counter(_opcode(t) for t in hot)
+        per_pair = f"{len(hot) / pairs:.2f}" if pairs else "n/a"
         print(f"{name}: {len(func['insns'])} instructions; largest loop "
-              f"{len(loop)}: " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
+              f"{len(loop)}: " + ", ".join(f"{k} {v}" for k, v in hist.most_common())
+              + f"; hot loop {len(hot)} instructions, {pairs} FSEL, "
+              f"{per_pair} issue slots per pair: "
+              + ", ".join(f"{k} {v}" for k, v in hot_hist.most_common()))
     return 0
 
 

@@ -45,15 +45,42 @@ def t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-@pytest.mark.parametrize("B,S,T", [(4, 1000, 3000), (1, 77, 131), (2, 2048, 64)])
-def test_nn_kernel_matches_plain(rng, dev, B, S, T):
-    """Indices equal and d2 bit-equal (same non-contracted arithmetic),
-    with masked and duplicated targets (ties go to the lowest index)."""
+# (B, S, T) of the sweep tests.  The sweep splits T across a cluster of up
+# to 8 CTAs of 128 sources each: 131 and 1001 are no multiple of the split,
+# 5 is smaller than it (empty ranges), and 77, 257, 300 and 1000 are no
+# multiple of the 128 sources of a CTA.
+SWEEP_SHAPES = [(4, 1000, 3000), (1, 77, 131), (2, 2048, 64), (1, 300, 1001),
+                (1, 77, 5), (3, 257, 700)]
+
+
+def _sweep_clouds(rng, dev, B, S, T):
+    """Sources, targets and a mask on the card: the second half of the
+    targets repeats the first (ties), ~30% masked targets, a third of the
+    sources on targets; at every boundary of the cluster's target ranges
+    the first target of a range duplicates the last of the one before,
+    both valid, with a source on it, so the tie crosses the split."""
     src = (rng.normal(size=(B, S, 3)) * 10).astype(np.float32)
     tgt = (rng.normal(size=(B, T, 3)) * 10).astype(np.float32)
     tgt[:, T // 2:] = tgt[:, : T - T // 2]
     src[:, : S // 3] = tgt[:, rng.integers(0, T, S // 3)]
     mask = rng.uniform(size=(B, T)) > 0.3
+    chunk = _cuda.sweep_geometry(B, S, T, dev)["chunk"]
+    for n, edge in enumerate(range(chunk, T, chunk)):
+        tgt[:, edge] = tgt[:, edge - 1]
+        mask[:, edge - 1: edge + 1] = True
+        src[:, (S - 1 - n) % S] = tgt[:, edge]
+    return src, tgt, mask
+
+
+@pytest.mark.parametrize("B,S,T", SWEEP_SHAPES)
+def test_nn_kernel_matches_plain(rng, dev, B, S, T):
+    """Indices equal and d2 bit-equal (same non-contracted arithmetic),
+    with masked and duplicated targets (ties go to the lowest index, also
+    across the split of the target axis); every target masked in the last
+    row of a batch."""
+    src, tgt, mask = _sweep_clouds(rng, dev, B, S, T)
+    if B > 1:
+        mask[-1] = False
     s, tg, m = t(src, dev), t(tgt, dev), t(mask, dev)
     n0 = _cuda.launch_counts["nn_sweep"]
     i_k, d_k = nn_search(s, tg, m)
@@ -63,21 +90,20 @@ def test_nn_kernel_matches_plain(rng, dev, B, S, T):
     assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
     i1, d1 = nn_search(s[0], tg[0], m[0])
     assert torch.equal(i1, i_k[0]) and torch.equal(d1, d_k[0])
+    if B > 1:
+        assert (i_k[-1] == 0).all()
 
 
 @pytest.mark.parametrize("impl,key", [("vpu", "nn_sweep_vpu"),
                                       ("vpu2", "nn_sweep_vpu2"),
                                       ("mxu", "nn_sweep_mxu")])
-@pytest.mark.parametrize("B,S,T", [(4, 1000, 3000), (1, 77, 131), (2, 2048, 64)])
+@pytest.mark.parametrize("B,S,T", SWEEP_SHAPES)
 def test_k3_kernel_matches_plain(rng, dev, impl, key, B, S, T):
     """K3 in each d2 form: indices equal and d2 bit-equal to the plain
     version (same rounded operations in the same order), masked and
-    duplicated targets included; every target masked in one row."""
-    src = (rng.normal(size=(B, S, 3)) * 10).astype(np.float32)
-    tgt = (rng.normal(size=(B, T, 3)) * 10).astype(np.float32)
-    tgt[:, T // 2:] = tgt[:, : T - T // 2]
-    src[:, : S // 3] = tgt[:, rng.integers(0, T, S // 3)]
-    mask = rng.uniform(size=(B, T)) > 0.3
+    duplicated targets included, ties across the split; every target
+    masked in one row."""
+    src, tgt, mask = _sweep_clouds(rng, dev, B, S, T)
     mask[0] = False
     s, tg, m = t(src, dev), t(tgt, dev), t(mask, dev)
     n0 = _cuda.launch_counts[key]
@@ -89,14 +115,13 @@ def test_k3_kernel_matches_plain(rng, dev, impl, key, B, S, T):
     assert (i_k[0] == 0).all()
 
 
-@pytest.mark.parametrize("B,S,T", [(4, 1000, 3000), (1, 77, 131)])
+@pytest.mark.parametrize("B,S,T", SWEEP_SHAPES)
 def test_k4_kernel_matches_plain(rng, dev, B, S, T):
     """K4: d2 bit-equal to K1's; q and n exactly the winner's point and
-    normal (real coordinates for a masked winner)."""
-    src = (rng.normal(size=(B, S, 3)) * 10).astype(np.float32)
-    tgt = (rng.normal(size=(B, T, 3)) * 10).astype(np.float32)
+    normal (real coordinates for a masked winner), ties across the
+    split included."""
+    src, tgt, mask = _sweep_clouds(rng, dev, B, S, T)
     nrm = rng.normal(size=(B, T, 3)).astype(np.float32)
-    mask = rng.uniform(size=(B, T)) > 0.3
     mask[0] = False
     s, tg, m, n = t(src, dev), t(tgt, dev), t(mask, dev), t(nrm, dev)
     n0 = _cuda.launch_counts["nn_sweep_vals"]
@@ -108,15 +133,29 @@ def test_k4_kernel_matches_plain(rng, dev, B, S, T):
     assert torch.equal(got[0], nn_search(s, tg, m)[1])
 
 
-@pytest.mark.parametrize("sb,tb", [(512, 512), (128, 256), (100, 200)])
-def test_k5_kernel_matches_plain(rng, dev, sb, tb):
+@pytest.mark.parametrize("sb,tb,case", [
+    (512, 512, "scatter"), (128, 256, "scatter"), (100, 200, "scatter"),
+    (1024, 512, "scatter"), (512, 2048, "one_block"), (128, 128, "far"),
+    (128, 128, "gate_0.3")])
+def test_k5_kernel_matches_plain(rng, dev, sb, tb, case):
     """K5 on Morton-sorted clouds: idx equal and d2 bit-equal to the plain
     version (same visiting and skipping rules), invalid rows (0, 0); within
-    the gate d2 agrees with K1 and the index with K1's where unique."""
+    the gate d2 agrees with K1 and the index with K1's where unique.
+    Source blocks of 100 rows split unevenly over the cluster's CTAs;
+    'one_block' has a single target block; 'far' puts the target 100 m
+    away, so every target block is pruned to 1e12 and only the first is
+    scored; 'gate_0.3' gates at 0.3 m, whose square is not exact in f32."""
     B, S, T, gate = 3, 1500, 2600, 4.0
+    if case == "one_block":
+        T = 1500
     tgt = rng.uniform(-15, 15, (B, T, 3)).astype(np.float32)
     src = tgt[:, rng.integers(0, T, S)] + rng.normal(
         scale=0.3, size=(B, S, 3)).astype(np.float32)
+    if case == "far":
+        tgt[..., 0] += 100.0
+        gate = 2.0
+    elif case == "gate_0.3":
+        gate = 0.3
     sm = rng.uniform(size=(B, S)) > 0.1
     tm = rng.uniform(size=(B, T)) > 0.1
     ss, sv, _ = nn_pruned.morton_sort(t(src, dev), t(sm, dev), sb)
@@ -128,8 +167,17 @@ def test_k5_kernel_matches_plain(rng, dev, sb, tb):
     assert _cuda.launch_counts["nn_pruned"] == n0 + 1
     assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
     assert not i_k[~sv].any() and not d_k[~sv].any()
+    if case == "far":
+        perm, tile_d2, t2 = nn_pruned.prepare(ss, sv, ts, tv, gate, sb, tb)
+        assert bool((tile_d2 == 1e12).all())
+        *_, tiles, _ = nn_pruned.pruned_sweep_plain(ss, sv, ts, t2, perm, tile_d2,
+                                                   sb, tb, count_visits=True)
+        assert tiles == int(sv.reshape(B, -1, sb).any(-1).sum())
     i1, d1 = nn_search(ss, ts, tv)
     inside = sv & (d1 <= gate * gate)
+    assert bool(inside.any()) == (case != "far")
+    if not inside.any():
+        return
     assert float((d_k - d1)[inside].abs().max()) <= 1e-3
     differ = inside & (i_k != i1)
     # a different index only on a near-tie: its per-coordinate distance

@@ -29,7 +29,8 @@ from lidar_slam_arvc_tpu.ops.nn import nn_search as xla_ref
 from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas, nn_search_pallas_vals
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned
 from lidar_slam_arvc_tpu_torch.ops.nn import (
-    nn_search, nn_search_plain, nn_search_vals, nn_search_xla)
+    FORMS, nn_search, nn_search_plain, nn_search_vals, nn_search_xla)
+from lidar_slam_arvc_tpu_torch.utils import sass, sweep_variants
 
 torch.set_num_threads(1)
 
@@ -227,6 +228,82 @@ def test_k5_presorted_invalid_rows_and_visits(rng):
                                              10.0, 128, 128)
 
 
+@pytest.mark.parametrize("impl", sorted(FORMS))
+def test_plain_sweep_equal_for_every_chunking(rng, impl):
+    """The merge rule the split sweep relies on: target ranges swept with a
+    strict <, then merged in ascending order by a strict <, give the
+    unsplit (idx, d2) exactly.  Every chunking of nn_search_plain is such
+    a split; duplicated targets straddle each chunk boundary, with a
+    source on them, and one batch row has every target masked."""
+    B, S, T = 2, 40, 97
+    src, tgt, mask = _clouds(rng, S, T)
+    src, tgt = np.stack([src, src[::-1]]), np.stack([tgt, tgt])
+    mask = np.stack([mask, np.zeros(T, bool)])
+    chunks = (1, 5, 7, 16, 50, T)
+    for n, edge in enumerate(sorted({e for c in chunks for e in range(c, T, c)})):
+        tgt[:, edge] = tgt[:, edge - 1]
+        src[:, n % S] = tgt[:, edge]
+    mask[0, 1:] |= mask[0, :-1]           # both sides of a tie valid somewhere
+    ref = nn_search_plain(t(src), t(tgt), t(mask), impl, max_elems=1 << 24)
+    for c in chunks:
+        got = nn_search_plain(t(src), t(tgt), t(mask), impl, max_elems=c * B * S)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), c
+    assert (ref[0][1] == 0).all()
+
+
+def _rank_order(d: np.ndarray) -> np.ndarray:
+    """perm of the K5 kernel's rank counting: rank_k = #{m : d_m < d_k or
+    (d_m == d_k and m < k)}, perm[rank_k] = k."""
+    perm = np.empty(d.shape, np.int64)
+    for k in range(d.shape[-1]):
+        rank = ((d < d[..., k:k + 1]).sum(-1)
+                + (d[..., :k] == d[..., k:k + 1]).sum(-1))
+        np.put_along_axis(perm, rank[..., None], k, axis=-1)
+    return perm
+
+
+@pytest.mark.parametrize("gate", [0.3, 10.0])
+def test_k5_rank_order_and_f32_gate(gate):
+    """What the K5 kernel computes for itself: the stable nearest-first
+    order by rank counting equals prepare's stable argsort, with ties
+    among equal box bounds (overlapping blocks at 0, pruned ones at 1e12);
+    the gate pre-prune compares in f32 against gate * gate rounded to f32
+    (the kernel's gate2), as the plain version and the reference's
+    nn_search_pruned_presorted (on its own _block_boxes / _box_dist2) do.
+    At a 0.3 m gate a box gap of exactly f32(0.3) gives a bound equal to
+    f32(0.09), which stays unpruned in all three."""
+    sb = tb = 4
+    # source blocks: x in [-1, 0]; target blocks k: x in [lo_k, lo_k + 1]
+    src = np.zeros((2 * sb, 3), np.float32)
+    src[:, 0] = np.tile(np.float32([-1.0, -0.5, -0.25, 0.0]), 2)
+    src[sb:, 1] = 5.0                               # block 1 sits 5 m off in y
+    lo = np.float32([0.3, 0.0, -0.5, 0.3, 2.0, np.nextafter(np.float32(0.3), 1),
+                     0.0, 30.0])
+    tgt = np.zeros((len(lo) * tb, 3), np.float32)
+    tgt[:, 0] = (lo[:, None] + np.float32([0.0, 0.3, 0.6, 1.0])).ravel()
+    tgt[:tb, 0] = np.float32([0.3, 0.3, 0.5, 0.9])  # lo exactly f32(0.3)
+    sv = np.ones(len(src), bool)
+    tv = np.ones(len(tgt), bool)
+    tv[6 * tb:7 * tb] = False                       # an empty block: 1e12
+    perm, tile_d2, _ = nn_pruned.prepare(t(src)[None], t(sv)[None], t(tgt)[None],
+                                         t(tv)[None], gate, sb, tb)
+    perm, tile_d2 = perm[0].numpy(), tile_d2[0].numpy()
+    d_ref = np.asarray(pruned_ref._box_dist2(
+        *pruned_ref._block_boxes(jnp.asarray(src), jnp.asarray(sv), sb),
+        *pruned_ref._block_boxes(jnp.asarray(tgt), jnp.asarray(tv), tb)))
+    d_ref = np.asarray(jnp.where(d_ref > gate * gate, pruned_ref._BIG, d_ref))
+    d_f32 = np.where(d_ref > np.float32(gate * gate), np.float32(1e12), d_ref)
+    np.testing.assert_array_equal(d_f32, d_ref)
+    np.testing.assert_array_equal(perm, _rank_order(d_ref))
+    np.testing.assert_array_equal(tile_d2, np.take_along_axis(d_ref, perm, -1))
+    assert (np.diff(tile_d2, axis=-1) >= 0).all()
+    row = d_ref[0]
+    assert (row == 0).sum() >= 2 and (row == np.float32(1e12)).sum() >= 2  # ties
+    if gate == 0.3:
+        assert row[0] == np.float32(0.09) and row[3] == row[0]   # kept, tied
+        assert row[5] == np.float32(1e12)                        # just past: pruned
+
+
 def test_batched_equals_unbatched_and_cpu_launches_nothing(rng):
     src = (rng.normal(size=(3, 90, 3)) * 4).astype(np.float32)
     tgt = (rng.normal(size=(3, 70, 3)) * 4).astype(np.float32)
@@ -249,3 +326,41 @@ def test_batched_equals_unbatched_and_cpu_launches_nothing(rng):
     assert _cuda.launch_counts == before
     with pytest.raises(ValueError, match="unknown impl"):
         nn_search(t(src), t(tgt), t(mask), "vpu3")
+
+
+def test_sweep_variant_source_sets_each_knob():
+    """utils/sweep_variants.py edits exactly the tuned constants of
+    nn_sweep.cuh, and refuses a header where one is missing."""
+    header = open(f"{_cuda.CSRC}/nn_sweep.cuh").read()
+    values = {"rows": 2, "tile": 256, "chains": 1, "ctas_per_sm": 4, "threads": 64}
+    out = sweep_variants.variant_source(header, values)
+    for knob, v in values.items():
+        assert f"constexpr int {sweep_variants.KNOBS[knob]} = {v};" in out
+    assert out.count("constexpr int") == header.count("constexpr int")
+    with pytest.raises(ValueError, match="kTile"):
+        sweep_variants.variant_source(header.replace("kTile = ", "kTileX = "), values)
+
+
+def test_sass_hot_loop_issue_slots():
+    """utils/sass.py: the hot loop is the loop densest in FP32 arithmetic
+    (not the largest), and its issue slots per pair are its instructions
+    over its best-value selects (FSEL)."""
+    text = """
+        Function : k
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   LDS.128 R4, [R2] ;
+.L_x_2:
+        /*0020*/                   FADD R8, R4, -R9 ;
+        /*0030*/                   FMUL R8, R8, R8 ;
+        /*0040*/                   FSETP.GEU.AND P0, PT, R8, R10, PT ;
+        /*0050*/                   FSEL R10, R8, R10, !P0 ;
+        /*0060*/               @P1 BRA `(.L_x_2) ;
+        /*0070*/                   STS [R3], R10 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/                   BRA `(.L_x_1) ;
+"""
+    func = sass.parse(text)["k"]
+    assert len(sass.largest_loop(func)) == 9
+    hot = sass.hot_loop(func)
+    assert len(hot) == 5 and sum(sass._opcode(t) == "FSEL" for t in hot) == 1
