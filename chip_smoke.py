@@ -13,7 +13,10 @@ line each, and exits non-zero on any failure:
    the split of the target axis, sources per thread).
 3. K2 (csrc/ball_moments.cu) vs its plain version: 4 voxelised synthetic
    scans at capacity 8192, r = 0.5, plus a ragged case.  Counts exact;
-   S1/S2 within the summation-order bound ``ops.moments.summation_tolerance``.
+   S1/S2 within the summation-order bound ``ops.moments.summation_tolerance``;
+   masked rows zero; two runs bit-equal.  Launch geometry, tiles and pairs
+   scored, the FLOP bound and the issue-rate bound of K2's own loop (issue
+   slots per pair from its SASS, ``utils/sass.py``).
 4. stage 1 end to end: a synthetic EUROC dataset at bench.py's workload
    (257 scans x 12,000 points), ``pipeline.cli.main(["scanmatch", ...])``
    in process, once to warm up and once timed; the three CSVs, K1's and
@@ -33,12 +36,12 @@ line each, and exits non-zero on any failure:
    launch counts set to 0 just before and read just after: relative
    transforms within 1e-3 m / 1e-3 rad of the K1 run, ATE < 0.2 m, no pair
    fallen back to its seed, its kernel launched.
-   Then "phase 2/5/6 profile" lines: the CUDA kernels one wrapper call of
+   Then "phase 2/3/5/6 profile" lines: the CUDA kernels one wrapper call of
    each phase launches and their device time, from torch.profiler traces
    taken only now, after every timed phase: a profiler session stays
    attached and slows every later launch from the host, and with it the
-   host-bound ICP runs.  Fails if a sweep call launches other than one
-   kernel or a K5 call more than two.
+   host-bound ICP runs.  Fails if a sweep or K2 call launches other than
+   one kernel or a K5 call more than two.
 8. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
@@ -62,7 +65,6 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from lidar_slam_arvc_tpu_torch import cloud as cl  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
@@ -73,16 +75,14 @@ from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams  # noqa: E402
-from lidar_slam_arvc_tpu_torch.utils import synthetic  # noqa: E402
+from lidar_slam_arvc_tpu_torch.utils import sass, synthetic  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate  # noqa: E402
+from lidar_slam_arvc_tpu_torch.utils.workload import (  # noqa: E402
+    CAPACITY, RADIUS, SCAN_POINTS, VOXEL, WORLD, cloud_points, k2_cases,
+    voxelised_scans)
 
 N_SCANS = 257
-SCAN_POINTS = 12000
-WORLD = {"extent": 30.0, "n_ground": 20000, "n_pillars": 40, "pillar_pts": 500}
-VOXEL = 0.2
-CAPACITY = 8192
-RADIUS = 0.5          # normal radius at a 0.2 m voxel: max(0.3, 2.5 * 0.2)
 STRIDE = 4            # bench.py's default source stride
 GATE = 10.0           # bench.py's correspondence gate (m)
 # the K5 d2 against K1's within the gate: the matmul form |t|^2 - 2 s.t
@@ -91,6 +91,7 @@ GATE = 10.0           # bench.py's correspondence gate (m)
 MATMUL_ATOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM, FP32 outside the tensor cores
+SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock
 # nn_impl -> the launch-count key (and JSON name) of the kernel it selects
 NN_IMPLS = {"auto": "nn_sweep", "vpu": "nn_sweep_vpu", "vpu2": "nn_sweep_vpu2",
             "mxu": "nn_sweep_mxu", "vpu_tq": "nn_sweep_vals",
@@ -218,13 +219,6 @@ def phase_device():
     return name, smi
 
 
-def _cloud_points(rng, B, n, extent=25.0):
-    p = np.empty((B, n, 3), dtype=np.float32)
-    p[..., :2] = rng.uniform(-extent, extent, (B, n, 2))
-    p[..., 2] = rng.uniform(-1.0, 3.0, (B, n))
-    return p
-
-
 def _nn_cases(rng, dev):
     """Phase 2's and 5's inputs: (tag, src, tgt, mask, normals) on the card,
     B = 4, ~30% masked targets, 10% duplicated targets (ties), a quarter
@@ -232,8 +226,8 @@ def _nn_cases(rng, dev):
     cases = []
     for tag, B, S, T in (("ragged", 4, 77, 131), ("S2048", 4, 2048, 8192),
                          ("S8192", 4, 8192, 8192)):
-        src = _cloud_points(rng, B, S)
-        tgt = _cloud_points(rng, B, T)
+        src = cloud_points(rng, B, S)
+        tgt = cloud_points(rng, B, T)
         dup = rng.integers(0, T, T // 10)
         tgt[:, rng.integers(0, T, T // 10)] = tgt[:, dup]
         src[:, : S // 4] = tgt[:, rng.integers(0, T, S // 4)]
@@ -282,35 +276,40 @@ def phase_k1(cases):
             "bound_by": by, "all": results}
 
 
-def _voxelised_scans(rng, dev, T_poses):
-    """Scans of bench.py's world rendered at the poses T_poses, cropped and
-    voxelised at capacity 8192, as a batched Cloud on the card."""
-    world = synthetic.make_world(rng, **WORLD)
-    raw = []
-    for T in T_poses:
-        raw.append(cl.from_numpy(synthetic.render_scan(
-            world, T, rng, max_points=SCAN_POINTS), 65536, device=dev))
-    c = cl.Cloud(torch.stack([r.points for r in raw]),
-                 torch.stack([r.mask for r in raw]))
-    c = cl.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
-    c, _ = cl.voxel_downsample_counted(c, VOXEL, out_capacity=CAPACITY)
-    return c
+def _k2_issue_slots(vector_loads: bool) -> tuple[float, float]:
+    """(issue slots every scored pair costs, issue slots more for a
+    neighbour) in K2's hot loop (utils/sass.py: its instructions over its
+    ball compares, the accumulations behind the branch apart), in the
+    instantiation that the phase-3 scans take (16-byte loads or scalar)."""
+    funcs, _ = sass.disassemble()
+    tag = f"Lb{int(vector_loads)}EEEv"   # the last template argument: VEC
+    names = [n for n in funcs if "ball_moments_kernel" in n and tag in n]
+    if len(names) != 1:
+        fail(f"K2's kernel not found once in the SASS ({names})")
+    slots, branch, *_ = sass.issue_slots_per_pair(funcs[names[0]])
+    if slots is None:
+        fail("K2's hot loop has no ball compare (FSETP) in the SASS")
+    return slots, branch
 
 
 def phase_k2(rng, dev):
-    c = _voxelised_scans(rng, dev, synthetic.make_trajectory(4, radius=12.0))
-    rq = _cloud_points(rng, 2, 1000, extent=2.0)
-    rm = rng.uniform(size=(2, 1000)) > 0.3
-    ragged = cl.Cloud(torch.from_numpy(rq).to(dev), torch.from_numpy(rm).to(dev))
+    cases = k2_cases(rng, dev)
+    c = cases[-1][1]
     max_err = 0.0
     times = {}
-    for tag, cloud, r in (("ragged", ragged, 0.3), ("scans", c, RADIUS)):
+    for tag, cloud, r in cases:
         args = (cloud.points, cloud.points, cloud.mask, r)
         ck, s1k, s2k = ball_moments(*args, query_mask=cloud.mask)
+        again = ball_moments(*args, query_mask=cloud.mask)
         cp, s1p, s2p = ball_moments_plain(*args, query_mask=cloud.mask)
         torch.cuda.synchronize()
         if not torch.equal(ck, cp):
             fail(f"K2 {tag}: counts differ in {int((ck != cp).sum())} rows")
+        if not all(torch.equal(a, b) for a, b in zip((ck, s1k, s2k), again)):
+            fail(f"K2 {tag}: two runs differ")
+        if bool(s1k[~cloud.mask].any()) or bool(s2k[~cloud.mask].any()) or \
+                bool(ck[~cloud.mask].any()):
+            fail(f"K2 {tag}: masked query rows are not zero")
         e1 = (s1k - s1p).abs().amax(-1)
         e2 = (s2k - s2p).abs().amax(-1)
         if bool((e1 > summation_tolerance(cp, r, 1)).any()) or \
@@ -318,23 +317,41 @@ def phase_k2(rng, dev):
             fail(f"K2 {tag}: S1/S2 beyond the summation-order bound "
                  f"(max |diff| S1 {float(e1.max())}, S2 {float(e2.max())})")
         max_err = max(max_err, float(e1.max()), float(e2.max()))
-        times[tag] = (cuda_ms(lambda: ball_moments(*args, query_mask=cloud.mask), 20),
+        def call(args=args, m=cloud.mask):
+            return ball_moments(*args, query_mask=m)
+        times[tag] = (cuda_ms(call, 20),
                       cuda_ms(lambda: ball_moments_plain(*args, query_mask=cloud.mask), 3))
+        profile_later(3, f"ball_moments {tag}", call, 1)
     # the work this data needs: 8 operations per scored (query, target)
     # pair, 16 more per neighbour (count, S1, S2)
+    B, Q = c.mask.shape
+    geo = _cuda.moments_geometry(B, Q, Q)
     tiles, pairs = scored_pairs(c.points, c.points, c.mask, RADIUS, c.mask)
     neighbours = float(ck.sum())
     b, by = bound_ms(nbytes(c.points, c.points, c.mask, c.mask) + ck.numel() * 40,
                      8.0 * pairs + 16.0 * neighbours)
+    # the issue rate of K2's own loop: 4 warp-instructions a cycle an SM;
+    # every scored pair runs the path to its ball compare, a neighbour also
+    # the accumulations behind the branch
+    path, branch = _k2_issue_slots(geo["vector_loads"])
+    slots = path + branch * neighbours / pairs
+    issue_ms = pairs * slots / (_cuda.sm_count(dev) * 128 * SM_CLOCK_HZ) * 1e3
     n_valid = int(c.mask.sum())
-    n_all = c.mask.shape[0] * -(-c.mask.shape[1] // 128) * -(-c.mask.shape[1] // 256)
+    n_all = B * -(-Q // geo["queries_per_cta"]) * -(-Q // geo["tile"])
     print(f"phase 3 K2 ball_moments vs plain: counts exact, max |S1/S2 diff| "
-          f"{max_err:.3g} (within the stated bound); B=4 scans at capacity "
-          f"{CAPACITY} ({n_valid} valid points), r={RADIUS}: kernel "
-          f"{times['scans'][0]:.4f} ms, plain {times['scans'][1]:.4f} ms, "
-          f"bound {b:.4f} ms ({by}; {tiles} of {n_all} tiles scored, "
-          f"{pairs} pairs, {int(neighbours)} neighbours); ragged B=2 Q=T=1000: "
-          f"kernel {times['ragged'][0]:.4f} ms, plain {times['ragged'][1]:.4f} ms")
+          f"{max_err:.3g} (within the stated bound), masked rows zero, two runs "
+          f"bit-equal; B=4 scans at capacity {CAPACITY} ({n_valid} valid "
+          f"points), r={RADIUS}: wrapper {times['scans'][0]:.4f} ms, plain "
+          f"{times['scans'][1]:.4f} ms, FLOP bound {b:.4f} ms ({by}), issue-rate "
+          f"bound {issue_ms:.4f} ms ({slots:.3f} issue slots per pair: {path:.3f} "
+          f"on every scored pair, {branch:.3f} more on each neighbour); {tiles} "
+          f"of {n_all} tiles scored, {pairs} pairs, {int(neighbours)} neighbours; "
+          f"grid {geo['grid'][0]}x{geo['grid'][1]} CTAs of {geo['threads']} "
+          f"threads, cluster {geo['cluster']}, {geo['queries_per_cta']} queries "
+          f"per CTA on {geo['lanes']} threads each, tile {geo['tile']}, "
+          f"{'16-byte' if geo['vector_loads'] else 'scalar'} loads, "
+          f"{geo['smem']} B dynamic smem; ragged B=2 Q=T=1000: wrapper "
+          f"{times['ragged'][0]:.4f} ms, plain {times['ragged'][1]:.4f} ms")
     return {"max_abs_err": max_err, "ms": times["scans"][0],
             "plain_ms": times["scans"][1], "bound_ms": b, "bound_by": by}
 
@@ -465,7 +482,7 @@ def _pruned_pairs(rng, dev):
     target (scan i) Morton-sorted, the source sorted by its raw coordinates
     and then moved into the target's frame by the true relative pose."""
     T = synthetic.make_trajectory(N_SCANS, radius=12.0)[:5]
-    c = _voxelised_scans(rng, dev, T)
+    c = voxelised_scans(rng, dev, T)
     rel = torch.from_numpy(np.stack([np.linalg.inv(T[i]) @ T[i + 1]
                                      for i in range(4)]).astype(np.float32)).to(dev)
     ss, sv, _ = nn_pruned.morton_sort(c.points[1:, ::STRIDE].contiguous(),
@@ -476,7 +493,7 @@ def _pruned_pairs(rng, dev):
 
 def phase_k5(rng, dev):
     scans = _pruned_pairs(rng, dev)
-    rs, rt = (torch.from_numpy(_cloud_points(rng, 2, n, extent=12.0)).to(dev)
+    rs, rt = (torch.from_numpy(cloud_points(rng, 2, n, extent=12.0)).to(dev)
               for n in (1000, 1300))
     rsm, rtm = (torch.from_numpy(rng.uniform(size=(2, n)) > f).to(dev)
                 for n, f in ((1000, 0.1), (1300, 0.3)))

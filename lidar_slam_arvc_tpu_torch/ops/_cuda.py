@@ -130,8 +130,10 @@ def _load(path: str) -> ctypes.CDLL:
     lib.nn_sweep_launch.restype = I
     lib.nn_sweep_geometry.argtypes = [I, I, I, I, P]
     lib.nn_sweep_geometry.restype = None
-    lib.ball_moments_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, F, P, P]
+    lib.ball_moments_launch.argtypes = [P, P, P, P, I, I, I, F, P, P]
     lib.ball_moments_launch.restype = I
+    lib.ball_moments_geometry.argtypes = [I, I, I, P]
+    lib.ball_moments_geometry.restype = I
     lib.nn_sweep_vals_launch.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
     lib.nn_sweep_vals_launch.restype = I
     lib.nn_pruned_launch.argtypes = [P, P, P, P, I, I, I, I, I, F, I, P, P, P]
@@ -175,6 +177,18 @@ def pruned_geometry(B: int, Sp: int, Tp: int, sb: int, tb: int, device) -> dict:
               sm_count(torch.device(device)), n=6)
     return {"grid": g[:2], "cluster": g[2], "threads": g[3],
             "rows_per_cta": g[4], "threads_per_row": g[5]}
+
+
+def moments_geometry(B: int, Q: int, T: int) -> dict:
+    """The launch K2 (``csrc/ball_moments.cu``) makes for these sizes: grid,
+    cluster size (query blocks sharing one set of tile boxes), threads per
+    CTA, queries per CTA, targets per tile, threads per query, whether a
+    16-byte aligned cloud takes 16-byte loads, and its dynamic shared
+    memory."""
+    g = _ints(library().ball_moments_geometry, B, Q, T, n=9)
+    return {"grid": g[:2], "cluster": g[2], "threads": g[3],
+            "queries_per_cta": g[4], "tile": g[5], "lanes": g[6],
+            "vector_loads": bool(g[7]), "smem": g[8]}
 
 
 def check(err: int, name: str) -> None:

@@ -7,10 +7,13 @@ Contract: for each valid query q, over the valid targets t with
 count, S1 = sum (t - q), S2 = upper triangle (xx, xy, xz, yy, yz, zz) of
 sum (t - q)(t - q)^T.  Rows whose query is masked are zeros.
 
-``ball_moments`` launches ``csrc/ball_moments.cu`` for CUDA tensors (see
-the source for what bounds it on an H100 and how tile skipping works) and
-runs ``ball_moments_plain`` for CPU tensors.  A CUDA tensor never reaches
-the plain version: a build or launch failure raises.
+``ball_moments`` launches ``csrc/ball_moments.cu`` for CUDA tensors, one
+kernel per call that also builds the target tile boxes (see the source for
+what bounds it on an H100 and how tile skipping works), and runs
+``ball_moments_plain`` for CPU tensors.  A CUDA tensor never reaches the
+plain version: a build or launch failure raises.  ``tile_boxes`` and
+``scored_pairs`` reckon the kernel's work at its shipped query block and
+tile; they are not on its path.
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import torch
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 
 SENTINEL = -4e7
-TILE = 256   # targets per tile box; must match kTile in ball_moments.cu
+# the kernel's shipped kQb and kTile (csrc/ball_moments.cu): queries per
+# CTA, targets per tile box
+QUERY_BLOCK = 64
+TILE = 128
 
 
 def _batched(query, tgt, tgt_mask, query_mask):
@@ -95,22 +101,24 @@ def tile_boxes(points: torch.Tensor, mask: torch.Tensor, tile: int = TILE):
 
 
 def scored_pairs(query, tgt, tgt_mask, radius: float, query_mask=None,
-                 query_block: int = 128) -> tuple[int, int]:
+                 query_block: int = QUERY_BLOCK, tile: int = TILE
+                 ) -> tuple[int, int]:
     """(tiles, pairs) the kernel scores: the (query block, target tile)
     pairs whose box gap does not exceed the radius, and the sum over them
     of valid queries x tile targets.  The skip test as in
-    ``ball_moments.cu`` (blocks of 128 queries, tiles of TILE targets); for
-    reckoning the kernel's work, not for its results."""
+    ``ball_moments.cu`` (by default its shipped blocks of QUERY_BLOCK
+    queries and tiles of TILE targets); for reckoning the kernel's work,
+    not for its results."""
     query, tgt, tgt_mask, query_mask, _ = _batched(query, tgt, tgt_mask,
                                                    query_mask)
-    lo, hi = tile_boxes(tgt, tgt_mask)                              # (B, nt, 3)
+    lo, hi = tile_boxes(tgt, tgt_mask, tile)                        # (B, nt, 3)
     qlo, qhi = tile_boxes(query, query_mask, query_block)           # (B, nq, 3)
     gap = torch.maximum(lo[:, None] - qhi[:, :, None], qlo[:, :, None] - hi[:, None])
     gap = torch.where(torch.isfinite(gap), gap.clamp(min=0.0), 1e12)
     visit = (gap * gap).sum(-1) <= float(radius) ** 2               # (B, nq, nt)
     T = tgt.shape[1]
-    n_tgt = torch.clamp(T - TILE * torch.arange(lo.shape[1], device=tgt.device),
-                        max=TILE)
+    n_tgt = torch.clamp(T - tile * torch.arange(lo.shape[1], device=tgt.device),
+                        max=tile)
     pad = (-query_mask.shape[1]) % query_block
     n_q = torch.cat([query_mask, query_mask.new_zeros((query_mask.shape[0], pad))],
                     dim=1).view(query_mask.shape[0], -1, query_block).sum(-1)
@@ -127,31 +135,36 @@ def ball_moments(query: torch.Tensor, tgt: torch.Tensor,
     tgt_mask (B, T) or (T,) bool; radius a Python float (fixed for the
     launch); query_mask like ``query`` without its last axis (default: all
     valid).  Returns (count (.., Q), S1 (.., Q, 3), S2 (.., Q, 6)) f32.
+    On the card T is at most 4096 tiles of TILE targets (524,288 points;
+    the kernel keeps its list of tiles in shared memory); a larger cloud
+    raises.
     """
     if query.device.type == "cpu":
         return ball_moments_plain(query, tgt, tgt_mask, radius, query_mask)
     if query.device.type != "cuda":
         raise ValueError(f"ball_moments: unsupported device {query.device}")
-    query, tgt, tgt_mask, query_mask, batched = _batched(
-        query, tgt, tgt_mask, query_mask)
+    batched = query.dim() == 3
+    if not batched:   # views: no launch
+        query, tgt, tgt_mask = query[None], tgt[None], tgt_mask[None]
+        if query_mask is not None:
+            query_mask = query_mask[None]
     B, Q = query.shape[:2]
     T = tgt.shape[1]
     dev = query.device
     _cuda.require(query, "query", torch.float32, (B, Q, 3), dev)
     _cuda.require(tgt, "tgt", torch.float32, (B, T, 3), dev)
     _cuda.require(tgt_mask, "tgt_mask", torch.bool, (B, T), dev)
-    _cuda.require(query_mask, "query_mask", torch.bool, (B, Q), dev)
+    if query_mask is not None:
+        _cuda.require(query_mask, "query_mask", torch.bool, (B, Q), dev)
     if Q == 0 or T == 0:
         raise ValueError("ball_moments: empty query or target cloud")
-    lo, hi = tile_boxes(tgt, tgt_mask)
     out = torch.empty((B, Q, 10), dtype=torch.float32, device=dev)
     lib = _cuda.library()
-    with torch.cuda.device(dev):
+    with _cuda.on_device(dev):
         err = lib.ball_moments_launch(
-            query.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
-            query_mask.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            B, Q, T, TILE, float(radius) ** 2, out.data_ptr(),
-            _cuda.stream_of(query))
+            query.data_ptr(), None if query_mask is None else query_mask.data_ptr(),
+            tgt.data_ptr(), tgt_mask.data_ptr(), B, Q, T, float(radius) ** 2,
+            out.data_ptr(), _cuda.stream_of(query))
     _cuda.check(err, "ball_moments")
     _cuda.launch_counts["ball_moments"] += 1
     return _split(out, batched)

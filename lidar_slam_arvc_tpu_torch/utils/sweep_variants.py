@@ -43,13 +43,15 @@ FORMS = (("K1", 0, "vpu_t"), ("mxu", 2, "mxu"))
 PARALLEL_BUILDS = 8
 
 
-def variant_source(header: str, values: dict) -> str:
-    """``header`` with each knob's constexpr set to ``values[knob]``."""
+def variant_source(header: str, values: dict, knobs: dict = KNOBS,
+                   name: str = "nn_sweep.cuh") -> str:
+    """``header`` (the source ``name``) with each knob's constexpr set to
+    ``values[knob]``; ``knobs`` maps a knob to its constant's name."""
     for knob, value in values.items():
-        pat = rf"constexpr int {KNOBS[knob]} = \d+;"
-        header, n = re.subn(pat, f"constexpr int {KNOBS[knob]} = {value};", header)
+        pat = rf"constexpr int {knobs[knob]} = \d+;"
+        header, n = re.subn(pat, f"constexpr int {knobs[knob]} = {value};", header)
         if n != 1:
-            raise ValueError(f"{KNOBS[knob]}: {n} definitions in nn_sweep.cuh")
+            raise ValueError(f"{knobs[knob]}: {n} definitions in {name}")
     return header
 
 

@@ -15,7 +15,7 @@ import torch
 from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.moments import (
-    ball_moments, ball_moments_plain, summation_tolerance)
+    TILE, ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops import nn_pruned
 from lidar_slam_arvc_tpu_torch.ops.nn import (
     nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
@@ -222,6 +222,90 @@ def test_moments_kernel_matches_plain(rng, dev, case):
     assert not got[0][~m].any()
 
 
+K2_MAX_TILES = 4096   # kMaxTiles in csrc/ball_moments.cu: its list of tiles
+
+
+def _moments_inputs(rng, dev, case):
+    """(query, tgt, tgt_mask, radius, query_mask) on the card for one edge
+    of K2's launch geometry; queries near (a quarter on) the targets."""
+    B, Q, T, r = {"ragged_scalar_loads": (2, 333, 1001, 0.5),
+                  "unaligned": (1, 300, 1024, 0.5),
+                  "tgt_below_one_tile": (2, 500, 100, 0.5),
+                  "fewer_tiles_than_cluster": (1, 1000, 600, 0.4),
+                  "masked_batch_rows": (3, 700, 900, 0.5),
+                  "radius_scores_every_tile": (2, 400, 1500, 100.0),
+                  "unbatched_no_query_mask": (1, 250, 777, 0.5),
+                  "one_query_block": (3, 40, 300, 0.5),
+                  "most_tiles": (1, 64, K2_MAX_TILES * TILE, 0.5)}[case]
+    tgt = rng.normal(scale=1.5, size=(B, T, 3)).astype(np.float32)
+    q = rng.normal(scale=1.5, size=(B, Q, 3)).astype(np.float32)
+    q[:, : Q // 4] = tgt[:, rng.integers(0, T, Q // 4)]
+    tm = rng.uniform(size=(B, T)) > 0.3
+    qm = rng.uniform(size=(B, Q)) > 0.2
+    if case == "masked_batch_rows":
+        tm[1] = False      # every target of row 1 masked: counts 0
+        qm[2] = False      # every query of row 2 masked: zeros
+    tgt_t = t(tgt, dev)
+    if case == "unaligned":   # a contiguous view 12 bytes into its storage
+        buf = torch.zeros((1, T + 1, 3), device=dev)
+        buf[:, 1:] = tgt_t
+        tgt_t = buf[:, 1:]
+        assert tgt_t.is_contiguous() and tgt_t.data_ptr() % 16 == 12
+    if case == "unbatched_no_query_mask":
+        return t(q[0], dev), tgt_t[0], t(tm[0], dev), r, None
+    return t(q, dev), tgt_t, t(tm, dev), r, t(qm, dev)
+
+
+@pytest.mark.parametrize("case", ["ragged_scalar_loads", "unaligned",
+                                  "tgt_below_one_tile", "fewer_tiles_than_cluster",
+                                  "masked_batch_rows", "radius_scores_every_tile",
+                                  "unbatched_no_query_mask", "one_query_block",
+                                  "most_tiles"])
+def test_moments_kernel_geometry_cases(rng, dev, case):
+    """K2 at the edges of its launch geometry: Q and T no multiple of the
+    query block or the tile (T % 4 != 0 and an unaligned cloud take the
+    scalar loads), T below one tile, fewer tiles than CTAs in the cluster
+    (CTAs that own no box), whole batch rows masked, a radius at which no
+    tile is skipped, an unbatched call without a query mask, one query
+    block per row (a cluster of one CTA), the most target tiles its list
+    holds.  Counts exact,
+    S1/S2 within ``summation_tolerance``, masked query rows zero, one
+    launch per call, and a second run bit-equal to the first."""
+    q, tgt, tm, r, qm = _moments_inputs(rng, dev, case)
+    B = q.shape[0] if q.dim() == 3 else 1
+    Q, T = q.shape[-2], tgt.shape[-2]
+    geo = _cuda.moments_geometry(B, Q, T)
+    n_tiles = -(-T // geo["tile"])
+    if case == "ragged_scalar_loads":
+        assert Q % geo["queries_per_cta"] and T % geo["tile"] and not geo["vector_loads"]
+    if case == "tgt_below_one_tile":
+        assert n_tiles == 1
+    if case == "fewer_tiles_than_cluster":
+        assert n_tiles < geo["cluster"]
+    if case == "one_query_block":
+        assert geo["cluster"] == 1 and geo["grid"] == (1, B)
+    if case == "most_tiles":
+        assert n_tiles == K2_MAX_TILES
+    if case == "radius_scores_every_tile":
+        tiles, _ = scored_pairs(q, tgt, tm, r, qm)
+        assert tiles == B * n_tiles * -(-Q // geo["queries_per_cta"])
+    n0 = _cuda.launch_counts["ball_moments"]
+    got = ball_moments(q, tgt, tm, r, query_mask=qm)
+    again = ball_moments(q, tgt, tm, r, query_mask=qm)
+    ref = ball_moments_plain(q, tgt, tm, r, query_mask=qm)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["ball_moments"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], ref[0])
+    for k, (a, b) in enumerate(zip(got[1:], ref[1:]), start=1):
+        err = (a - b).abs().amax(-1)
+        assert bool((err <= summation_tolerance(ref[0], r, k)).all()), err.max()
+    if qm is not None:
+        assert not any(x[~qm].any() for x in got)
+    if case == "masked_batch_rows":
+        assert not got[0][1].any() and (ref[0][0] > 0).any()
+
+
 def test_wrappers_reject_bad_inputs(dev):
     p = torch.zeros((1, 8, 3), device=dev)
     m = torch.ones((1, 8), dtype=torch.bool, device=dev)
@@ -239,6 +323,15 @@ def test_wrappers_reject_bad_inputs(dev):
         ball_moments(p, p, m.float(), 0.5)
     with pytest.raises(ValueError):
         ball_moments(p.transpose(1, 2).contiguous().transpose(1, 2), p, m, 0.5)
+    # one target more than K2's list of tiles holds: refused, no fallback
+    T = K2_MAX_TILES * TILE + 1
+    with pytest.raises(ValueError):
+        _cuda.moments_geometry(1, 8, T)
+    n0 = _cuda.launch_counts["ball_moments"]
+    with pytest.raises(RuntimeError):
+        ball_moments(p, torch.zeros((1, T, 3), device=dev),
+                     torch.ones((1, T), dtype=torch.bool, device=dev), 0.5)
+    assert _cuda.launch_counts["ball_moments"] == n0
 
 
 def test_voxel_deterministic_and_equal_to_cpu(rng, dev):

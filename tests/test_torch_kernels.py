@@ -18,7 +18,7 @@ from lidar_slam_arvc_tpu.ops.moments_pallas import ball_moments_pallas
 from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.moments import (
-    ball_moments, ball_moments_plain, tile_boxes)
+    QUERY_BLOCK, TILE, ball_moments, ball_moments_plain, scored_pairs, tile_boxes)
 from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_plain
 
 torch.set_num_threads(1)
@@ -159,3 +159,34 @@ def test_cpu_tensors_take_the_plain_version(rng):
     nn_search(pts, pts, m)
     ball_moments(pts, pts, m, 0.5)
     assert _cuda.launch_counts == before
+
+
+def test_scored_pairs_matches_brute_force_box_gaps(rng):
+    """``scored_pairs`` reckons K2's work at the kernel's shipped query
+    block and tile (the constants of ``csrc/ball_moments.cu``): the same
+    (query block, target tile) pairs and pair count as a numpy loop over
+    every block and tile of a small sorted cloud."""
+    src = open(f"{_cuda.CSRC}/ball_moments.cu").read()
+    assert f"constexpr int kQb = {QUERY_BLOCK};" in src
+    assert f"constexpr int kTile = {TILE};" in src
+    B, Q, T, r = 2, 300, 700, 0.5
+    tgt = np.sort(rng.uniform(0, 8, (B, T, 3)).astype(np.float32), axis=1)
+    q = np.sort(rng.uniform(0, 8, (B, Q, 3)).astype(np.float32), axis=1)
+    tm = rng.uniform(size=(B, T)) > 0.2
+    qm = rng.uniform(size=(B, Q)) > 0.2
+    tm[0, TILE:2 * TILE] = False                  # one tile with no valid target
+    tiles = pairs = 0
+    for b in range(B):
+        for i0 in range(0, Q, QUERY_BLOCK):
+            qv = q[b, i0:i0 + QUERY_BLOCK][qm[b, i0:i0 + QUERY_BLOCK]]
+            for j0 in range(0, T, TILE):
+                tv = tgt[b, j0:j0 + TILE][tm[b, j0:j0 + TILE]]
+                if not len(qv) or not len(tv):
+                    continue
+                gap = np.maximum(np.maximum(tv.min(0) - qv.max(0),
+                                            qv.min(0) - tv.max(0)), 0)
+                if (gap * gap).sum(dtype=np.float32) <= np.float32(r * r):
+                    tiles += 1
+                    pairs += len(qv) * min(TILE, T - j0)
+    assert 0 < tiles < B * -(-Q // QUERY_BLOCK) * -(-T // TILE)
+    assert scored_pairs(t(q), t(tgt), t(tm), r, t(qm)) == (tiles, pairs)

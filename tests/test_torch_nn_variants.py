@@ -30,7 +30,7 @@ from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas, nn_search_pallas
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned
 from lidar_slam_arvc_tpu_torch.ops.nn import (
     FORMS, nn_search, nn_search_plain, nn_search_vals, nn_search_xla)
-from lidar_slam_arvc_tpu_torch.utils import sass, sweep_variants
+from lidar_slam_arvc_tpu_torch.utils import moments_variants, sass, sweep_variants
 
 torch.set_num_threads(1)
 
@@ -364,3 +364,56 @@ def test_sass_hot_loop_issue_slots():
     assert len(sass.largest_loop(func)) == 9
     hot = sass.hot_loop(func)
     assert len(hot) == 5 and sum(sass._opcode(t) == "FSEL" for t in hot) == 1
+
+
+def test_moments_variant_source_sets_each_knob():
+    """utils/moments_variants.py edits exactly K2's tuned constants in
+    ball_moments.cu, and refuses a source where one is missing."""
+    source = open(f"{_cuda.CSRC}/ball_moments.cu").read()
+    values = {"qb": 128, "tile": 256, "lanes": 2}
+    out = sweep_variants.variant_source(source, values, moments_variants.KNOBS,
+                                        "ball_moments.cu")
+    for knob, v in values.items():
+        assert f"constexpr int {moments_variants.KNOBS[knob]} = {v};" in out
+    assert out.count("constexpr int") == source.count("constexpr int")
+    with pytest.raises(ValueError, match="kLanes: 0 definitions in ball_moments.cu"):
+        sweep_variants.variant_source(source.replace("kLanes = ", "kLane = "), values,
+                                      moments_variants.KNOBS, "ball_moments.cu")
+
+
+def test_sass_ball_compares_and_ptxas_usage():
+    """utils/sass.py: a hot loop without a select (K2's) counts one scored
+    pair per ball compare (FSETP), and the instructions a predicated
+    forward branch skips (the accumulations of a neighbour) apart from the
+    rest; registers, static shared memory, stack and spills are read per
+    kernel from ``ptxas -v``."""
+    text = """
+        Function : k2
+.L_x_1:
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   FADD R8, R4, -R9 ;
+        /*0020*/                   FMUL R8, R8, R8 ;
+        /*0030*/                   FSETP.GTU.AND P0, PT, R8, R10, PT ;
+        /*0040*/                   BSSY B0, `(.L_x_2) ;
+        /*0050*/               @P0 BRA `(.L_x_2) ;
+        /*0060*/                   FADD R11, R11, 1 ;
+.L_x_2:
+        /*0070*/                   BSYNC B0 ;
+        /*0080*/               @P1 BRA `(.L_x_1) ;
+"""
+    func = sass.parse(text)["k2"]
+    assert sass.pairs_in(sass.hot_loop(func)) == (1, "FSETP")
+    assert sass.branch_bodies(func) == ["FADD R11, R11, 1"]
+    assert sass.issue_slots_per_pair(func) == (8.0, 1.0, 9, 1, "FSETP")
+    log = """ptxas info    : Compiling entry function '_Z2k2Pf' for 'sm_90a'
+ptxas info    : Function properties for _Z2k2Pf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 4352 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z2k1v' for 'sm_90a'
+ptxas info    : Function properties for _Z2k1v
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 400 bytes cmem[0]
+"""
+    assert sass.ptxas_usage(log) == {
+        "_Z2k2Pf": "40 registers, 4352 bytes static smem, 8 bytes stack, 8 bytes spilled",
+        "_Z2k1v": "64 registers, 0 bytes static smem, 0 bytes stack, 0 bytes spilled"}
