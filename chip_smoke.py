@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through eight phases, one
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through nine phases, one
 line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -36,25 +36,60 @@ line each, and exits non-zero on any failure:
    launch counts set to 0 just before and read just after: relative
    transforms within 1e-3 m / 1e-3 rad of the K1 run, ATE < 0.2 m, no pair
    fallen back to its seed, its kernel launched.
+8. stage 2 end to end on phase 4's dataset: ``pipeline.cli.main(["graph",
+   ...])`` twice, store at full resolution (voxel None) and capacity 8192,
+   pose capacity 512 (PCG with the cyclic-reduction preconditioner), the
+   synthetic slam parameters (10 triplets, cadence 10), launch counts set
+   to 0 before each run and read after it; and once more on a copy with
+   ground-truth scan matching and no loop closing (the "model" run: what
+   the sigma table makes of the odometry, whose translation it trusts as
+   much as the scan matcher's, and the GPS).  Fails unless the solution
+   has 257 rows, stage 2 launched K1 and K2 and ran a loop-closure ICP
+   pair, the solver is pcg, the run accepted the (i, j) closures the JAX
+   package accepts on this dataset, in its order (REFERENCE_CLOSURES),
+   and its ATE is the JAX package's (REFERENCE_FULL_ATE; both from
+   ``stage2_parity.py full --capacity 8192``), the model run's ATE is the
+   JAX package's on the same inputs (REFERENCE_MODEL_ATE, from
+   ``stage2_parity.py model``), both ATEs to 1e-3 m, and both CSVs are
+   byte-identical across the runs.  Prints the profile's seconds, the
+   closures accepted, the ICP batch sizes and the solver's LM steps, CG
+   iterations and host synchronisations; times the run's last optimize
+   again from its start under the PCG and the dense solver (they must
+   agree); then holds K1 (loop pairs, S=T=8192, at every batch size the
+   run used and at 20) and K2 (4 compacted scans, r = 0.3) against their
+   plain versions at stage 2's shapes, with times and bounds.
+9. the pose-graph solvers alone on SLAM-shaped graphs of 256, 512, 1024
+   and 2048 poses (``utils/graph_profile.solver_graph``): ms per LM step of the dense (up to 1024) and the PCG
+   step; dense and PCG agree at 256 and 512 (tests/test_graph.py's
+   TestPCGSolver bounds); at 256 the dense chunked marginals and the PCG
+   blocks are within 5e-2 of a float64 inverse; every card solve is
+   within 1e-3 of the same code in float64 on the CPU in cost (relative)
+   and 1e-2 m in positions (the f32 stop rule ends LM at the f32 floor,
+   which leaves millimetres along the weakly anchored directions).
    Then "phase 2/3/5/6 profile" lines: the CUDA kernels one wrapper call of
    each phase launches and their device time, from torch.profiler traces
-   taken only now, after every timed phase: a profiler session stays
+   taken only now, after every timed phase (phases 7-9 included): a profiler session stays
    attached and slows every later launch from the host, and with it the
    host-bound ICP runs.  Fails if a sweep or K2 call launches other than
    one kernel or a K5 call more than two.
-8. the last line: {"ok": true, "device": {...}}.
+10. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
 the wrapper (CUDA events over back-to-back calls), plain-version time and
 the bound (the larger of the bytes the function must move over the HBM
 rate and its FP32 operations over the FP32 peak, NVIDIA's H100 SXM data
-sheet), from this run's inputs.  The sweeps need sm_90a (thread block
+sheet), from this run's inputs; K1's and K2's entries also carry a
+``stage2`` object with the same numbers at stage 2's shapes and the
+launches of phase 8's first run.  The sweeps need sm_90a (thread block
 clusters).
 """
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -65,8 +100,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from lidar_slam_arvc_tpu_torch.cloud import Cloud, compact_counted, crop_radius_height  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
+from lidar_slam_arvc_tpu_torch.graph import PoseGraph, make_factor_data  # noqa: E402
+from lidar_slam_arvc_tpu_torch.graph import pcg, solver  # noqa: E402
+from lidar_slam_arvc_tpu_torch.graph.factors import FACTOR_FIELDS  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
+from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
@@ -74,9 +114,11 @@ from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
     nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
+from lidar_slam_arvc_tpu_torch.pipeline.graphslam import run_graphslam  # noqa: E402
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils import sass, synthetic  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig  # noqa: E402
+from lidar_slam_arvc_tpu_torch.utils.graph_profile import solver_graph  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.workload import (  # noqa: E402
     CAPACITY, RADIUS, SCAN_POINTS, VOXEL, WORLD, cloud_points, k2_cases,
@@ -405,7 +447,7 @@ def phase_stage1(tmp, smi):
           f"ATE rmse {err['rmse']:.5f} m; launches {launches}; "
           f"{prof['scans_over_capacity']} scans over capacity; dataset "
           f"generated in {gen_s:.1f} s; card {smi}")
-    return launches, d, info["T_gt"]
+    return launches, d, info["T_gt"], err["rmse"]
 
 
 def phase_k3_k4(cases):
@@ -615,6 +657,339 @@ def phase_nn_impls(d, T_gt, dev):
           + "; ".join(lines))
     return launches
 
+STAGE2_CAPACITY = 8192      # stage 2's store: full-resolution scans, compacted
+# stage 2's ATE on phase 4's dataset with ground-truth scan matching and
+# no loop closing: what the reference's sigma table makes of the biased
+# odometry and the GPS (the JAX package on the CPU, ``stage2_parity.py
+# model``)
+REFERENCE_MODEL_ATE = 0.2712940349558227
+# the JAX package's full stage 2 on phase 4's dataset (its own stage 1,
+# loop closing, store capacity 8192; ``stage2_parity.py full --capacity
+# 8192`` on the CPU): the (i, j) closures it accepts, which the card's run
+# must accept, in order, and its ATE
+REFERENCE_CLOSURES = [(250, 0), (250, 4), (250, 1), (250, 5), (255, 4), (255, 8),
+                      (255, 2), (255, 6), (255, 1), (255, 5), (255, 3), (255, 7),
+                      (255, 5), (255, 9), (255, 0), (255, 4)]
+REFERENCE_FULL_ATE = 0.2845012263381373
+# the card's ATEs must be the reference's to this; the port on the CPU
+# gives both to 5e-6 m, and at store capacity 2048 the two packages'
+# full runs differ by 1.1e-4 m (the card's stage 1 is the port's, not the
+# JAX package's)
+REFERENCE_ATE_TOL = 1e-3
+STAGE2_PAIRS = 20           # loop-closure ICP batch: 2 x 10 triplets at most
+SOLVER_CAPACITIES = (256, 512, 1024, 2048)
+DENSE_MAX = 1024            # dense LM steps are timed up to this capacity
+STEP_REPS = 3               # LM steps timed per solver and capacity
+
+
+def _stage2_kernel_shapes(d, T_gt, dev, batch_sizes):
+    """K1 and K2 held against their plain versions at the shapes stage 2
+    gives them: 20 full-resolution scans (10 at the start of the circle,
+    10 at its end) compacted to capacity 8192; K2 over 4 of them at the
+    normal radius 0.3 m, K1 over loop-closure pairs (end scan onto start
+    scan, moved by the true relative pose) at every batch size of the
+    run's ICP batches (``batch_sizes``) and at the largest the loop closer
+    forms, 20; K1 is timed at the run's largest batch."""
+    euroc = EurocDataset(d)
+    times = euroc.read_csv("/robot0/scanmatcher/lidar_times.csv")["#timestamp [ns]"]
+    pick = np.concatenate([np.arange(10), np.arange(N_SCANS - 10, N_SCANS)])
+    raw_pts, raw_mask = sm.load_scans(euroc, times[pick], 65536)
+    c = Cloud(torch.from_numpy(raw_pts).to(dev), torch.from_numpy(raw_mask).to(dev))
+    c = crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
+    c, _ = compact_counted(c, out_capacity=STAGE2_CAPACITY)
+    r = IcpConfig().normal_radius
+    q, qm = c.points[:4].contiguous(), c.mask[:4].contiguous()
+    ck, s1k, s2k = ball_moments(q, q, qm, r, query_mask=qm)
+    cp, s1p, s2p = ball_moments_plain(q, q, qm, r, query_mask=qm)
+    torch.cuda.synchronize()
+    if not torch.equal(ck, cp):
+        fail(f"phase 8 K2 at stage 2's shape: counts differ in {int((ck != cp).sum())} rows")
+    e1, e2 = (s1k - s1p).abs().amax(-1), (s2k - s2p).abs().amax(-1)
+    if bool((e1 > summation_tolerance(cp, r, 1)).any()) or \
+            bool((e2 > summation_tolerance(cp, r, 2)).any()):
+        fail("phase 8 K2 at stage 2's shape: S1/S2 beyond the summation-order bound")
+    _, pairs = scored_pairs(q, q, qm, r, qm)
+    k2 = {"ms": cuda_ms(lambda: ball_moments(q, q, qm, r, query_mask=qm), 20),
+          "plain_ms": cuda_ms(lambda: ball_moments_plain(q, q, qm, r, query_mask=qm), 3),
+          "max_abs_err": max(float(e1.max()), float(e2.max())),
+          "bound": bound_ms(nbytes(q, q, qm, qm) + ck.numel() * 40,
+                            8.0 * pairs + 16.0 * float(ck.sum())),
+          "shape": f"B=4, Q=T={STAGE2_CAPACITY} compacted scans, r={r}"}
+    rel = np.stack([np.linalg.inv(T_gt[pick[k]]) @ T_gt[pick[10 + k]]
+                    for k in range(10)] * 2).astype(np.float32)
+    tgt, tm = c.points[np.tile(np.arange(10), 2)], c.mask[np.tile(np.arange(10), 2)]
+    src = transform_points(torch.from_numpy(rel).to(dev),
+                           c.points[np.tile(np.arange(10, 20), 2)]).contiguous()
+    tgt, tm = tgt.contiguous(), tm.contiguous()
+    err, geo = 0.0, []
+    for b in sorted(set(batch_sizes) | {STAGE2_PAIRS}):
+        g = _cuda.sweep_geometry(b, STAGE2_CAPACITY, STAGE2_CAPACITY, dev)
+        geo.append(f"B={b} grid {g['grid']} cluster {g['cluster']}")
+        i_k, d_k = nn_search(src[:b], tgt[:b], tm[:b])
+        i_p, d_p = nn_search_plain(src[:b], tgt[:b], tm[:b])
+        torch.cuda.synchronize()
+        if not torch.equal(i_k, i_p) or not torch.equal(d_k, d_p):
+            fail(f"phase 8 K1 at stage 2's shape, B={b}: differs from the "
+                 f"plain version ({int((i_k != i_p).sum())} indices)")
+        err = max(err, float((d_k - d_p).abs().max()))
+    b = max(batch_sizes)
+    src, tgt, tm = src[:b], tgt[:b], tm[:b]
+    i_k, d_k = nn_search(src, tgt, tm)
+    k1 = {"ms": cuda_ms(lambda: nn_search(src, tgt, tm), 10),
+          "plain_ms": cuda_ms(lambda: nn_search_plain(src, tgt, tm), 2),
+          "max_abs_err": err,
+          "bound": _sweep_bound(src, tgt, tm, 8, outs=(i_k, d_k)),
+          "shape": f"B={b}, S=T={STAGE2_CAPACITY} (plain-equal at "
+                   + ", ".join(geo) + ")"}
+    return {"nn_sweep": k1, "ball_moments": k2}
+
+
+def _stage2_model(d, T_gt):
+    """(ATE, wall s) of stage 2 on the card on a copy of the dataset with
+    ground-truth scan matching and no loop closing."""
+    dm = d + "_model"
+    shutil.copytree(d, dm)
+    synthetic.write_model_inputs(dm, T_gt)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = run_graphslam(dm)
+    wall = time.time() - t0
+    shutil.rmtree(dm)
+    return ate(out["solution"], T_gt)["rmse"], wall
+
+
+@contextlib.contextmanager
+def _stage2_spies():
+    """Record, during one stage-2 run, the pose graph with its poses and
+    iteration limit at each optimize, and the pairs of each loop-closure
+    ICP batch."""
+    rec = {"optimize": [], "icp_batches": []}
+    optimize, batch = PoseGraph.optimize, KeyframeStore.compute_transformations_batch
+
+    def optimize_spy(self, max_iterations=15, solver="auto"):
+        rec["optimize"].append((self, self.poses.copy(), max_iterations))
+        return optimize(self, max_iterations, solver)
+
+    def batch_spy(self, pairs, seeds):
+        rec["icp_batches"].append(len(pairs))
+        return batch(self, pairs, seeds)
+
+    PoseGraph.optimize = optimize_spy
+    KeyframeStore.compute_transformations_batch = batch_spy
+    try:
+        yield rec
+    finally:
+        PoseGraph.optimize = optimize
+        KeyframeStore.compute_transformations_batch = batch
+
+
+def _final_optimize(rec, T_gt):
+    """The run's last optimize (every closure in the graph) again from the
+    poses it started from, under each solver, alternated PCG, dense, PCG,
+    dense: {solver: [(wall s, LM steps, CG iterations, cost)]}.  Dense and
+    PCG must agree to phase 9's bounds (tests/test_graph.py's
+    TestPCGSolver)."""
+    g, poses0, iters = rec["optimize"][-1]
+    out, ends = {"pcg": [], "dense": []}, {}
+    for name in ("pcg", "dense", "pcg", "dense"):
+        g.poses = poses0.copy()
+        before = dict(g.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = g.optimize(max_iterations=iters, solver=name)
+        wall = time.perf_counter() - t0
+        out[name].append((wall, g.stats["lm_steps"] - before["lm_steps"],
+                          g.stats["cg_iterations"] - before["cg_iterations"], cost))
+        ends[name] = ate(g.get_solution_transforms_lidar()[:N_SCANS], T_gt)["rmse"]
+    c_d, c_p = out["dense"][-1][3], out["pcg"][-1][3]
+    if abs(c_d - c_p) >= 0.05 * max(abs(c_d), 1.0) or abs(ends["dense"] - ends["pcg"]) >= 0.02:
+        fail(f"phase 8 final optimize: dense (cost {c_d}, ATE {ends['dense']}) and "
+             f"PCG (cost {c_p}, ATE {ends['pcg']}) disagree")
+    return out, ends
+
+
+def phase_stage2(d, T_gt, ate_stage1, smi, dev):
+    """Stage 2 through ``cli graph`` twice on phase 4's dataset."""
+    argv = ["graph", "-i", d, "--capacity", str(STAGE2_CAPACITY)]
+    slam = f"{d}/robot0/SLAM"
+    runs = []
+    for k in range(2):
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as out, \
+                (_stage2_spies() if k == 0 else contextlib.nullcontext({})) as rec:
+            rc = cli.main(argv)   # its per-step progress stays out of the log
+        wall = time.time() - t0
+        if rc != 0:
+            fail("stage 2 returned non-zero")
+        summary = out.getvalue().strip().splitlines()[-1].split("\r")[-1]
+        launches = dict(_cuda.launch_counts)
+        files = {}
+        for name in ("solution_graphslam.csv", "loop_closures.csv"):
+            with open(f"{slam}/{name}", "rb") as f:
+                files[name] = f.read()
+        with open(f"{d}/robot0/viz/graphslam_profile.json") as f:
+            runs.append((launches, files, json.load(f), wall, summary, rec))
+    (launches, files, prof, wall, summary, rec), (_, files2, prof2, wall2, _, _) = runs
+    for name in files:
+        if files[name] != files2[name]:
+            fail(f"stage 2: {name} differs between two runs")
+    rows = _rows(f"{slam}/solution_graphslam.csv")
+    if rows != N_SCANS:
+        fail(f"stage 2 solution has {rows} rows, expected {N_SCANS}")
+    for k in ("nn_sweep", "ball_moments"):
+        if launches[k] <= 0:
+            fail(f"stage 2 did not launch kernel {k}")
+    if prof["loop_icp_pairs"] <= 0:
+        fail("stage 2 ran no loop-closure ICP pair")
+    if prof["solver"] != "pcg":
+        fail(f"stage 2 solver {prof['solver']}, expected pcg at {N_SCANS} poses")
+    with open(f"{slam}/loop_closures.csv") as f:
+        closures = [tuple(int(v) for v in row.split(",")[1:])
+                    for row in f.read().split()[1:]]
+    if closures != REFERENCE_CLOSURES or \
+            prof["loop_closures_accepted"] != len(REFERENCE_CLOSURES):
+        fail(f"stage 2 accepted the closures {closures}, the reference "
+             f"{REFERENCE_CLOSURES} on this dataset")
+    _, T_sol = EurocDataset(d).read_trajectory("/robot0/SLAM/solution_graphslam.csv")
+    err = ate(T_sol, T_gt)["rmse"]
+    if not np.isfinite(T_sol).all() or abs(err - REFERENCE_FULL_ATE) > REFERENCE_ATE_TOL:
+        fail(f"stage 2 ATE rmse {err} m, the reference's {REFERENCE_FULL_ATE} m")
+    ate_model, wall_model = _stage2_model(d, T_gt)
+    if abs(ate_model - REFERENCE_MODEL_ATE) > REFERENCE_ATE_TOL:
+        fail(f"stage 2 model run: ATE rmse {ate_model} m, the reference's "
+             f"{REFERENCE_MODEL_ATE} m")
+    final, ends = _final_optimize(rec, T_gt)
+    shapes = _stage2_kernel_shapes(d, T_gt, dev, rec["icp_batches"])
+    keys = ("store_load_preprocess_seconds", "solve_loop_seconds",
+            "optimize_seconds", "loop_candidate_search_seconds",
+            "loop_icp_seconds", "marginals_seconds", "host_other_seconds")
+    print(f"phase 8 stage 2 (cli graph x2, {N_SCANS} poses, pose capacity "
+          f"512, store capacity {STAGE2_CAPACITY} at voxel None; CSVs "
+          f"byte-identical across the runs): '{summary}'; solver {prof['solver']}; "
+          f"{prof['loop_closures_accepted']} closures accepted in "
+          f"{prof['loop_closing_rounds']} rounds, the reference's: "
+          + " ".join(f"{i}-{j}" for i, j in closures)
+          + f"; {prof['loop_icp_pairs']} ICP pairs in batches of "
+          f"{rec['icp_batches']}; ATE rmse {err:.7f} m (the reference's "
+          f"{REFERENCE_FULL_ATE:.7f} +- {REFERENCE_ATE_TOL}; stage 1 {ate_stage1:.5f}); "
+          f"model run (ground-truth scan matching, no loop closing) ATE "
+          f"{ate_model:.7f} m against the reference's {REFERENCE_MODEL_ATE:.7f} "
+          f"m, wall {wall_model:.3f} s; launches K1 "
+          f"{launches['nn_sweep']}, K2 {launches['ball_moments']}; solver "
+          f"stats {prof['solver_stats']}; run 1 " + ", ".join(
+              f"{k} {prof[k]}" for k in keys) + f", wall {wall:.3f} s; run 2 "
+          + ", ".join(f"{k} {prof2[k]}" for k in keys) + f", wall {wall2:.3f} s; "
+          + f"final optimize (optimize {len(rec['optimize'])} of the run, "
+          f"{rec['optimize'][-1][2]} iterations) again from its start: "
+          + "; ".join(f"{name} " + ", ".join(
+              f"{w:.4f} s ({n} LM steps, {cg} CG iterations, "
+              f"{1e3 * w / max(n, 1):.3f} ms/LM step, cost {c:.6g})"
+              for w, n, cg, c in v) + f", ATE {ends[name]:.6f} m"
+              for name, v in final.items()) + "; "
+          + "; ".join(f"{k} at {v['shape']}: plain-equal, wrapper {v['ms']:.4f} "
+                      f"ms, plain {v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} "
+                      f"ms ({v['bound'][1]})" for k, v in shapes.items())
+          + f"; card {smi}")
+    for k in shapes:
+        shapes[k]["launches"] = launches[k]
+    return shapes
+
+
+def _step_ms(step, poses, reps: int) -> float:
+    """Wall ms per LM step (each step ends in reading its cost on the
+    host, as the solve does), after one warm-up step."""
+    step(poses)[1].item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        poses, cost = step(poses)
+        cost.item()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_solvers(dev, capacities=SOLVER_CAPACITIES, dense_max=DENSE_MAX):
+    """The pose-graph solvers alone: ms per LM step, dense against PCG,
+    marginal blocks, and every card solve against the same code in
+    float64 on the CPU."""
+    lines = []
+    for n in capacities:
+        g, T = solver_graph(n, dev)
+        arrays = {k: getattr(g, k) for k in FACTOR_FIELDS}
+        f = make_factor_data(n, dev, **arrays)
+        f64 = make_factor_data(n, "cpu", dtype=torch.float64, **arrays)
+        p0 = torch.as_tensor(g.poses, device=dev)
+        p64 = torch.as_tensor(g.poses, dtype=torch.float64)
+        solvers = {"pcg": (pcg.solve_graph_pcg,
+                           lambda p: pcg.pcg_lm_step(p, f, n, 1e-6))}
+        if n <= dense_max:
+            solvers["dense"] = (solver.solve_graph,
+                                lambda p: solver._lm_step(p, f, n, 1e-6))
+        res = {}
+        for name, (solve, step) in solvers.items():
+            ms = _step_ms(step, p0, STEP_REPS)
+            stats = {}
+            t0 = time.perf_counter()
+            poses, cost = solve(p0, f, n, stats=stats)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            poses = poses.cpu().numpy()
+            poses64, cost64 = solve(p64, f64, n)
+            poses64 = poses64.numpy()
+            dpos = float(np.abs(poses[:, :3, 3] - poses64[:, :3, 3]).max())
+            if not np.isfinite(poses).all() or \
+                    abs(float(cost) - float(cost64)) > 1e-3 * max(float(cost64), 1.0) \
+                    or dpos > 1e-2:
+                fail(f"phase 9 {name} at {n} poses: the card's f32 solve "
+                     f"(cost {float(cost)}) differs from float64 on the CPU "
+                     f"(cost {float(cost64)}, max position diff {dpos} m)")
+            res[name] = (ms, solve_s, float(cost), poses, stats, dpos)
+        if n in (256, 512):
+            c_d, c_p = res["dense"][2], res["pcg"][2]
+            e_d = ate(res["dense"][3].astype(np.float64), T)["rmse"]
+            e_p = ate(res["pcg"][3].astype(np.float64), T)["rmse"]
+            if abs(c_d - c_p) >= 0.05 * max(abs(c_d), 1.0) or abs(e_d - e_p) >= 0.02:
+                fail(f"phase 9 at {n} poses: dense (cost {c_d}, ATE {e_d}) and "
+                     f"PCG (cost {c_p}, ATE {e_p}) disagree")
+        note = ""
+        if n == 256:
+            g.poses = res["dense"][3]
+            idx = np.arange(0, n, 16)
+            t0 = time.perf_counter()
+            dense = g.marginal_covariances()[idx]
+            t_dense = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            blocks = g.marginal_covariances(indices=idx)
+            t_pcg = time.perf_counter() - t0
+            # both against a float64 inverse of H at the same poses, in
+            # correlation form; cond(H) ~ 5e8 puts each f32 path's floor
+            # at a few percent (tests/test_graph.py::TestMarginals)
+            H64, _ = solver._assemble(torch.as_tensor(g.poses, dtype=torch.float64),
+                                      f64, n)
+            cov64 = np.linalg.inv(H64.numpy() + 1e-9 * np.eye(6 * n))
+            truth = np.stack([cov64[6 * i:6 * i + 6, 6 * i:6 * i + 6] for i in idx])
+            dd = np.sqrt(np.einsum("kii,kjj->kij", truth, truth))
+            errs = [float((np.abs(c - truth) / (5e-2 * (dd + np.abs(truth)))).max())
+                    for c in (dense, blocks)]
+            if not np.isfinite(blocks).all() or max(errs) > 1.0:
+                fail(f"phase 9 marginals at 256: dense chunked / PCG blocks "
+                     f"beyond 5e-2 of the float64 inverse ({errs})")
+            note = (f"; marginals of {len(idx)} poses: dense chunked (all "
+                    f"poses) {t_dense:.3f} s, PCG blocks {t_pcg:.3f} s, "
+                    f"max |diff| vs float64 {errs[0] * 5e-2:.3g} and "
+                    f"{errs[1] * 5e-2:.3g} of (correlation + 1)")
+        lines.append(f"{n}: " + ", ".join(
+            f"{name} {ms:.3f} ms/LM step, solve {solve_s:.3f} s "
+            f"({st.get('lm_steps', 0)} LM steps, {st.get('cg_iterations', 0)} "
+            f"CG iterations, {st.get('host_syncs', 0)} host syncs), cost "
+            f"{cost:.6g}, max position diff vs float64 CPU {dpos:.3g} m"
+            for name, (ms, solve_s, cost, _, st, dpos) in res.items()) + note)
+    print("phase 9 pose-graph solvers (SLAM-shaped chain, loops every 40 "
+          "poses, GPS every 5; f32 on the card; dense and PCG agree at 256 "
+          "and 512; every solve within 1e-3 in cost and 1e-2 m of float64 on the CPU): "
+          + "; ".join(lines))
+
 
 def main():
     if not torch.cuda.is_available():
@@ -626,10 +1001,12 @@ def main():
     cases = _nn_cases(rng, dev)
     res = {"nn_sweep": phase_k1(cases), "ball_moments": phase_k2(rng, dev)}
     with tempfile.TemporaryDirectory() as tmp:
-        stage1, d, T_gt = phase_stage1(tmp, smi)
+        stage1, d, T_gt, ate1 = phase_stage1(tmp, smi)
         res.update(phase_k3_k4(cases))
         res["nn_pruned"] = phase_k5(rng, dev)
         launches = phase_nn_impls(d, T_gt, dev)
+        stage2 = phase_stage2(d, T_gt, ate1, smi, dev)
+    phase_solvers(dev)
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1
     launches.update(nn_sweep=stage1["nn_sweep"],
@@ -652,6 +1029,13 @@ def main():
          "plain_ms": res[key]["plain_ms"], "bound_ms": res[key]["bound_ms"],
          "bound_by": res[key]["bound_by"], "library_ms": None}
         for key, src, tpu in meta]
+    # K1 and K2 also run on stage 2's path (phase 8), at its own shapes
+    for k in kernels[:2]:
+        st = stage2[k["name"]]
+        k["stage2"] = {"launches": st["launches"], "shape": st["shape"],
+                       "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+                       "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
+                       "bound_by": st["bound"][1], "library_ms": None}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""lidar_slam_arvc_tpu_torch — stage 1 of the LiDAR SLAM pipeline on PyTorch + CUDA.
+"""lidar_slam_arvc_tpu_torch — the LiDAR SLAM pipeline (stages 1 and 2) on PyTorch + CUDA.
 
 The port of ``lidar_slam_arvc_tpu`` (JAX on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``).  The layout
@@ -6,11 +6,14 @@ mirrors the JAX package module for module, so each counterpart is easy to
 find:
 
 geom          SE(3)/SO(3) algebra on tensors; float64 numpy host mirrors
-io            PCD files, EUROC CSV/YAML layer (numpy + csv, no pandas/yaml)
+io            PCD files, EUROC CSV/YAML layer (numpy + csv, no pandas/yaml), UTM
 cloud         Cloud container, crop, compaction, voxel downsample, normals
 ops           3x3 eigensolver; the two CUDA kernels (NN sweep, ball moments)
 registration  batched point-to-plane / point-to-point ICP
-pipeline      stage-1 scan matcher, preprocessing and the CLI
+graph         pose graph: factors, dense LM and PCG solvers, marginals
+keyframes     keyframe store: preprocessed scans, batched registration
+loop          triangle-gated loop closing
+pipeline      stage-1 scan matcher, stage-2 graph SLAM, preprocessing, CLI
 utils         IcpConfig, ATE/RPE metrics, synthetic EUROC datasets
 
 The package imports torch, numpy and the standard library only — never

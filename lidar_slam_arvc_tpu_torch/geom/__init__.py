@@ -1,1 +1,1 @@
-"""SE(3)/SO(3) algebra on tensors (se3) and float64 numpy host mirrors (hostmath)."""
+"""SE(3)/SO(3) algebra on tensors (se3, rotations) and float64 numpy host mirrors (hostmath)."""

@@ -1,7 +1,8 @@
 """Batched SO(3)/SE(3) algebra on tensors.
 
 Counterpart of ``lidar_slam_arvc_tpu/geom/se3.py`` (and of the parts of
-``rotations.py`` it needs).  Every 3x3/4x4 product is written out
+``rotations.py`` it needs; the SO(3) log and Euler angles are in
+``geom/rotations.py``).  Every 3x3/4x4 product is written out
 elementwise, so no matmul runs and TF32 cannot touch the geometry — the
 counterpart of the reference's ``Precision.HIGHEST`` rule.  Tangent
 convention ``xi = [w(3), v(3)]``; transforms are (..., 4, 4).
@@ -10,6 +11,8 @@ convention ``xi = [w(3), v(3)]``; transforms are (..., 4, 4).
 from __future__ import annotations
 
 import torch
+
+from lidar_slam_arvc_tpu_torch.geom.rotations import rot_to_euler, so3_log
 
 
 def _eye3(like: torch.Tensor) -> torch.Tensor:
@@ -60,6 +63,19 @@ def _V_matrix(w: torch.Tensor) -> torch.Tensor:
             + C[..., None, None] * _hat_sq(w))
 
 
+def _V_inv_matrix(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3): I - W/2 + c*W^2 with series near zero."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    small = theta2 < 1e-12
+    half = theta / 2.0
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    (1.0 - half * torch.cos(half)
+                     / torch.clamp(torch.sin(half), min=1e-24))
+                    / torch.clamp(theta2, min=1e-24))
+    return _eye3(w) - 0.5 * so3_hat(w) + c[..., None, None] * _hat_sq(w)
+
+
 def matvec3(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) @ (..., 3), written out elementwise."""
     return (M[..., 0] * v[..., 0, None] + M[..., 1] * v[..., 1, None]
@@ -82,6 +98,17 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     w = xi[..., :3]
     v = xi[..., 3:]
     return make_transform(matvec3(_V_matrix(w), v), so3_exp(w))
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """Log map SE(3) -> se(3); returns [w(3), v(3)]."""
+    w = so3_log(T[..., :3, :3])
+    return torch.cat([w, matvec3(_V_inv_matrix(w), T[..., :3, 3])], dim=-1)
+
+
+def t2v(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) -> [tx, ty, tz, alpha, beta, gamma] (first Euler branch)."""
+    return torch.cat([T[..., :3, 3], rot_to_euler(T[..., :3, :3])], dim=-1)
 
 
 def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:

@@ -41,9 +41,25 @@ class EurocDataset:
     def read_csv(self, filename: str) -> dict:
         return read_csv(self.directory + filename)
 
-    def read_scanmatcher_parameters(self) -> dict:
-        with open(f"{self.directory}/robot0/scanmatcher_parameters.yaml") as f:
+    def _yaml(self, relative: str) -> dict:
+        with open(f"{self.directory}/robot0/{relative}") as f:
             return load_yaml(f.read())
+
+    def read_transform(self, sensor: str) -> np.ndarray:
+        """4x4 extrinsics from robot0/<sensor>/transform.yaml
+        (reference eurocreader.py:15-24)."""
+        return np.asarray(self._yaml(f"{sensor}/transform.yaml")["transform"],
+                          dtype=np.float64).reshape(4, 4)
+
+    def read_utm_ref(self, gpsname: str = "gps0") -> dict:
+        """GPS origin from robot0/<gps>/reference.yaml (eurocreader.py:26-36)."""
+        return self._yaml(f"{gpsname}/reference.yaml")
+
+    def read_scanmatcher_parameters(self) -> dict:
+        return self._yaml("scanmatcher_parameters.yaml")
+
+    def read_slam_parameters(self) -> dict:
+        return self._yaml("slam_parameters.yaml")
 
     def scan_pcd_path(self, scan_time) -> str:
         return f"{self.directory}/robot0/lidar/data/{scan_time}.pcd"
@@ -106,6 +122,16 @@ class EurocDataset:
 
     def save_sensor_times_as_csv(self, sensor_times, filename: str) -> dict:
         cols = {TIME: np.asarray(sensor_times)}
+        write_csv(self._ensure_dir(filename), cols)
+        return cols
+
+    def save_loop_closures_as_csv(self, loop_closures, filename: str) -> dict:
+        """Flatten [[i, j], ...] groups (None groups skipped) into an i,j CSV
+        (reference eurocreader.py:81-97)."""
+        pairs = [(int(p[0]), int(p[1])) for group in loop_closures
+                 if group is not None for p in group]
+        cols = {"i": np.array([p[0] for p in pairs], dtype=np.int64),
+                "j": np.array([p[1] for p in pairs], dtype=np.int64)}
         write_csv(self._ensure_dir(filename), cols)
         return cols
 

@@ -53,6 +53,16 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def torch_device(device, caller: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device with no card present is
+    an error, never a silent move to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: device 'cuda' requested but no CUDA "
+                           "device is available")
+    return device
+
+
 def _sources() -> list[str]:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                   if f.endswith((".cu", ".cuh")))

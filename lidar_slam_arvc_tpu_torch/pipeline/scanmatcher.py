@@ -209,13 +209,16 @@ def _check_supported(cfg: IcpConfig, method: str) -> None:
 
 
 def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
-                    progress: bool = True, device="cuda") -> dict:
+                    progress: bool = True, device="cuda",
+                    return_preprocessed: bool = False) -> dict:
     """Full stage 1 on ``device``; writes the scanmatcher CSVs and the
-    profile, and returns the trajectory."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_scanmatcher: device 'cuda' requested but no "
-                           "CUDA device is available")
+    profile, and returns the trajectory.
+
+    ``return_preprocessed=True`` also returns the preprocessed scan tensors
+    under ``"preprocessed"``, with the fingerprint of every configuration
+    field the preprocessing read, so that stage 2 can reuse them when it
+    wants the same clouds (``pipeline.graphslam.run_graphslam``)."""
+    device = _cuda.torch_device(device, "run_scanmatcher")
     euroc = EurocDataset(directory)
     sm_params = euroc.read_scanmatcher_parameters()
     start_index = sm_params.get("start_index", 0)
@@ -278,7 +281,17 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
     os.makedirs(f"{directory}/robot0/viz", exist_ok=True)
     with open(f"{directory}/robot0/viz/scanmatcher_profile.json", "w") as f:
         json.dump(profile, f, indent=2)
-    return {"scan_times": scan_times, "relative": rel_sm,
-            "global": T_global, "icp_seconds": icp_seconds,
-            "frames_per_second": profile["frames_per_second"],
-            "profile": profile}
+    out = {"scan_times": scan_times, "relative": rel_sm,
+           "global": T_global, "icp_seconds": icp_seconds,
+           "frames_per_second": profile["frames_per_second"],
+           "profile": profile}
+    if return_preprocessed:
+        out["preprocessed"] = {
+            "points": points, "mask": mask, "normals": normals,
+            "scan_times": scan_times, "voxel_size": voxel_size,
+            "method": method, "capacity": int(cfg.capacity),
+            "raw_capacity": int(cfg.raw_capacity),
+            "crop": (float(cfg.min_radius), float(cfg.max_radius),
+                     float(cfg.min_height), float(cfg.max_height)),
+            "normal_radius": float(cfg.normal_radius)}
+    return out

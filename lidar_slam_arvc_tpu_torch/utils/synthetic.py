@@ -196,6 +196,25 @@ def make_dataset(directory: str, n_scans: int = 40, seed: int = 0,
     return {"T_gt": T_gt, "times": times, "world": world}
 
 
+def write_model_inputs(directory: str, T_gt: np.ndarray) -> None:
+    """Make a dataset's stage-2 inputs show stage 2's noise model alone:
+    the scan matcher's CSVs become the ground truth ``T_gt`` and loop
+    closing is turned off, so the SLAM trajectory is what the sigma table
+    makes of perfect scan matching, the odometry and the GPS."""
+    from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset
+    from lidar_slam_arvc_tpu_torch.io.formats import load_yaml
+    euroc = EurocDataset(directory)
+    times = euroc.read_csv("/robot0/lidar/data.csv")[TIME]
+    euroc.save_sensor_times_as_csv(times, "/robot0/scanmatcher/lidar_times.csv")
+    euroc.save_transforms_as_csv(times, T_gt,
+                                 "/robot0/scanmatcher/scanmatcher_global.csv")
+    path = f"{directory}/robot0/slam_parameters.yaml"
+    with open(path) as f:
+        params = load_yaml(f.read())
+    params["perform_loop_closing"] = False
+    _write_yaml(path, params)
+
+
 def _write_yaml(path: str, mapping: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:

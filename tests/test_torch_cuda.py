@@ -372,3 +372,23 @@ def test_stage1_card_matches_cpu(tmp_path, dev):
     assert dpos.max() < 5e-3, dpos
     for out in (gpu, cpu):
         assert ate(out["global"], info["T_gt"])["rmse"] < 0.2
+
+
+def test_pose_graph_solve_refuses_tf32(dev):
+    """The solvers' 6x6 products are f32 matmuls: a solve on the card with
+    TF32 matmuls switched on raises instead of rounding them."""
+    from lidar_slam_arvc_tpu_torch.graph import PoseGraph
+    g = PoseGraph(max_poses=8, device=dev)
+    g.init_graph()
+    for i in range(5):
+        rel = synthetic._yaw_T(1.0, 0.0, 0.05)
+        g.add_initial_estimate(rel, i + 1)
+        g.add_edge(rel, i, i + 1, "SM")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for solver in ("dense", "pcg"):
+            with pytest.raises(RuntimeError, match="f32 matmuls"):
+                g.optimize(solver=solver)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert np.isfinite(g.optimize(solver="pcg"))

@@ -17,10 +17,11 @@ import yaml
 from lidar_slam_arvc_tpu.geom import hostmath as hm_ref
 from lidar_slam_arvc_tpu.io import euroc as euroc_ref
 from lidar_slam_arvc_tpu.io import sampling as sampling_ref
+from lidar_slam_arvc_tpu.io import utm as utm_ref
 from lidar_slam_arvc_tpu.utils import metrics as metrics_ref
 from lidar_slam_arvc_tpu.utils import synthetic as synthetic_ref
 from lidar_slam_arvc_tpu_torch.geom import hostmath as hm
-from lidar_slam_arvc_tpu_torch.io import euroc, formats, pcd, sampling
+from lidar_slam_arvc_tpu_torch.io import euroc, formats, pcd, sampling, utm
 from lidar_slam_arvc_tpu_torch.utils import metrics, synthetic
 
 torch.set_num_threads(1)
@@ -208,3 +209,47 @@ def test_pcd_round_trip(tmp_path, rng, kind):
     path = str(tmp_path / f"s.{kind}.pcd")
     pcd.write_pcd(path, pts, data_kind=kind)
     np.testing.assert_array_equal(pcd.read_pcd(path), read_ref(path))
+
+
+def test_gps_conversion_matches_reference(tmp_path, rng):
+    """filter_gps + gps2utm on the dataset's GPS table: the same rows,
+    columns (in order) and values as the reference's pandas frames."""
+    d = str(tmp_path)
+    synthetic.make_dataset(d, n_scans=12, scan_points=100,
+                           world_kwargs={"n_ground": 200, "n_pillars": 1,
+                                         "pillar_pts": 10})
+    ds, ds_ref = euroc.EurocDataset(d), euroc_ref.EurocDataset(d)
+    table = ds.read_csv("/robot0/gps0/data.csv")
+    table["latitude"][[2, 7]] = 0.0            # rows without a fix
+    df = pd.DataFrame(table)
+    ref_cfg = ds_ref.read_utm_ref("gps0")
+    assert ds.read_utm_ref("gps0") == ref_cfg
+    for zone in (None, 30):
+        got = utm.gps2utm(utm.filter_gps(table), ds.read_utm_ref("gps0"), zone)
+        ref = utm_ref.gps2utm(utm_ref.filter_gps(df), ref_cfg, zone)
+        assert list(got) == list(ref.columns) and len(got["x"]) == 10
+        for k in ref.columns:
+            np.testing.assert_array_equal(got[k], ref[k].to_numpy(), k)
+    lat = rng.uniform(-60, 70, 50)
+    lon = rng.uniform(-180, 180, 50)
+    np.testing.assert_array_equal(np.stack(utm.latlon_to_utm(lat, lon, zone=31)),
+                                  np.stack(utm_ref.latlon_to_utm(lat, lon, zone=31)))
+    assert utm.latlon_to_utm(38.3, -0.7) == utm_ref.latlon_to_utm(38.3, -0.7)
+    np.testing.assert_array_equal(ds.read_transform("gps0"),
+                                  ds_ref.read_transform("gps0"))
+    assert ds.read_slam_parameters() == ds_ref.read_slam_parameters()
+
+
+@pytest.mark.parametrize("groups", [
+    [], [None, []], [[[38, 0], [38, 2]], None, [], [[77, 12]]],
+    [[[np.int64(5), np.int64(1)]]]], ids=["empty", "no_pairs", "groups", "numpy_ints"])
+def test_loop_closures_csv_byte_identical(tmp_path, groups):
+    ref = euroc_ref.EurocDataset(str(tmp_path / "ref"))
+    got = euroc.EurocDataset(str(tmp_path / "port"))
+    for ds in (ref, got):
+        ds.save_loop_closures_as_csv(groups, "/robot0/SLAM/loop_closures.csv")
+    a = _tree_bytes(tmp_path / "ref")
+    b = _tree_bytes(tmp_path / "port")
+    assert list(a) == list(b) == [os.path.join("robot0", "SLAM", "loop_closures.csv")]
+    for k in a:
+        assert a[k] == b[k], (a[k], b[k])
