@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through nine phases, one
-line each, and exits non-zero on any failure:
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through eleven phases,
+one line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
 2. K1 (csrc/nn_sweep.cu) vs its plain PyTorch version on the card: batch
@@ -65,14 +65,41 @@ line each, and exits non-zero on any failure:
    blocks are within 5e-2 of a float64 inverse; every card solve is
    within 1e-3 of the same code in float64 on the CPU in cost (relative)
    and 1e-2 m in positions (the f32 stop rule ends LM at the f32 floor,
-   which leaves millimetres along the weakly anchored directions).
+   which leaves millimetres along the weakly anchored directions).  A
+   singular 6x6 block through the BCR, tridiagonal and Jacobi
+   preconditioners and a graph with no prior through the dense marginals
+   must give non-finite results.
    Then "phase 2/3/5/6 profile" lines: the CUDA kernels one wrapper call of
    each phase launches and their device time, from torch.profiler traces
    taken only now, after every timed phase (phases 7-9 included): a profiler session stays
    attached and slows every later launch from the host, and with it the
    host-bound ICP runs.  Fails if a sweep or K2 call launches other than
    one kernel or a K5 call more than two.
-10. the last line: {"ok": true, "device": {...}}.
+10. the icp2planes method at full width (run before phase 9): phase 4's
+   scans with ``method: icp2planes`` in both parameter files
+   (``utils.workload.method_dataset``), ``cli scanmatch`` then ``cli
+   graph`` (store at voxel None, capacity 8192), each with the launch
+   counts set to 0 just before and read just after: K1 and K2 launched in
+   both, the store's loop-closure ICP through the two-plane path, both
+   ATEs and the fallbacks held to the JAX package's runs on the same
+   dataset over three keys (``stage2_parity.py icp2planes``: within the
+   keys' spread or 1e-3 m, whichever is larger); K1 held bit-equal to its
+   plain version on the first and the last input the ICP gave it at each
+   batch shape of each run (stage 1's ground and non-ground rows, the
+   loop-closure batches), with each shape's launch geometry; prints
+   seconds, the ground split's share of preprocessing, launches and the
+   closures beside the reference's.
+11. the fpfh method at full width and reduced depth (run before phase 9):
+   33 box-world scans, ``cli scanmatch`` twice: CSVs byte-identical, K1
+   and K2 launched, the share of pairs within 0.5 m, the fallbacks and the
+   ATE held to the JAX package's (``stage2_parity.py fpfh``: within the
+   keys' spread); one cloud's FPFH and one pair's ``nn2_search`` on the
+   card against the same functions on the CPU; the store's fpfh
+   registration of four overlapping pairs against the truth; K1 held to
+   its plain version on the ICP's inputs of the first run and of the
+   store's registration, as in phase 10; FPFH ms per cloud and RANSAC ms
+   per pair.
+12. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
@@ -86,6 +113,7 @@ clusters).
 """
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -101,9 +129,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from lidar_slam_arvc_tpu_torch.cloud import Cloud, compact_counted, crop_radius_height  # noqa: E402
+from lidar_slam_arvc_tpu_torch.cloud.fpfh import compute_fpfh  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph import PoseGraph, make_factor_data  # noqa: E402
-from lidar_slam_arvc_tpu_torch.graph import pcg, solver  # noqa: E402
+from lidar_slam_arvc_tpu_torch.graph import bcr, pcg, solver  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph.factors import FACTOR_FIELDS  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore  # noqa: E402
@@ -111,18 +140,23 @@ from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
-    nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
+    nn2_search, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline.graphslam import run_graphslam  # noqa: E402
+from lidar_slam_arvc_tpu_torch.registration.global_reg import (  # noqa: E402
+    GlobalRegParams, ransac_feature_registration)
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams  # noqa: E402
-from lidar_slam_arvc_tpu_torch.utils import sass, synthetic  # noqa: E402
+from lidar_slam_arvc_tpu_torch.utils import sass, synthetic, workload  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.graph_profile import solver_graph  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.workload import (  # noqa: E402
     CAPACITY, RADIUS, SCAN_POINTS, VOXEL, WORLD, cloud_points, k2_cases,
     voxelised_scans)
+
+# registration/__init__ exports a function named like its icp module
+icp_mod = importlib.import_module("lidar_slam_arvc_tpu_torch.registration.icp")
 
 N_SCANS = 257
 STRIDE = 4            # bench.py's default source stride
@@ -607,8 +641,9 @@ def phase_nn_impls(d, T_gt, dev):
     cfg = IcpConfig(capacity=CAPACITY, source_stride=STRIDE)
     scan_times, _, _, odo, _ = sm.prepare_experiment_data(euroc, 0, prm["delta_time"])
     raw_pts, raw_mask = sm.load_scans(euroc, scan_times, cfg.raw_capacity)
-    points, mask, normals, _ = sm.preprocess_all(
+    scans, _ = sm.preprocess_all(
         raw_pts, raw_mask, cfg, prm["method"], prm["voxel_size"], dev)
+    points, mask, normals = scans.points, scans.mask, scans.normals
     idx_src, idx_tgt, seeds = sm.consecutive_pairs(
         points.shape[0], cfg.batch_size, sm.relative_odometry(odo))
     n_pairs = points.shape[0] - 1
@@ -909,6 +944,38 @@ def _step_ms(step, poses, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _singular_checks(dev) -> str:
+    """A singular 6x6 block through each PCG preconditioner's set-up (BCR,
+    block tridiagonal, Jacobi) and a graph with no prior (H singular: the
+    reference's ``cho_factor`` gives NaN) through the dense marginals: every
+    result must be non-finite on the card, as on the CPU."""
+    g = torch.Generator().manual_seed(0)
+    M = torch.randn(8, 6, 6, generator=g)
+    D = (M @ M.transpose(-1, -2) + 6.0 * torch.eye(6)).to(dev)
+    E = (0.1 * torch.randn(8, 6, 6, generator=g)).to(dev)
+    E[-1] = 0.0
+    D[[0, 3]] = 0.0      # inverted directly: 3 by BCR, 0 by the tridiagonal
+    b = torch.ones(8, 6, device=dev)
+    Uinv, W = pcg._build_tridiag_precond(D, E)
+    Minv = solver.inv_or_nan(D)
+    finite = {"bcr": bool(torch.isfinite(bcr.bcr_solve(*bcr.bcr_factor(D, E), b)).all()),
+              "tridiag": bool(torch.isfinite(pcg._apply_tridiag_precond(Uinv, W, E, b)).all()),
+              "jacobi": not bool(torch.isnan(Minv[[0, 3]]).all())}
+    if not bool(torch.isfinite(Minv[1:3]).all() and torch.isfinite(Minv[4:]).all()):
+        fail("phase 9: Jacobi inverted a regular 6x6 block to a non-finite one")
+    T = synthetic.make_trajectory(8, radius=4.0)
+    pg = PoseGraph(max_poses=8, device=dev)
+    for i in range(7):
+        rel = np.linalg.inv(T[i]) @ T[i + 1]
+        pg.add_initial_estimate(rel, i + 1)
+        pg.add_edge(rel, i, i + 1, "SM")
+    finite["marginals"] = not bool(np.isnan(pg.marginal_covariances()).all())
+    if any(finite.values()):
+        fail(f"phase 9: a singular block gave a finite result on the card: {finite}")
+    return ("a singular 6x6 block gives a non-finite BCR, tridiagonal and Jacobi "
+            "preconditioner, a graph with no prior all-NaN dense marginals")
+
+
 def phase_solvers(dev, capacities=SOLVER_CAPACITIES, dense_max=DENSE_MAX):
     """The pose-graph solvers alone: ms per LM step, dense against PCG,
     marginal blocks, and every card solve against the same code in
@@ -988,7 +1055,304 @@ def phase_solvers(dev, capacities=SOLVER_CAPACITIES, dense_max=DENSE_MAX):
     print("phase 9 pose-graph solvers (SLAM-shaped chain, loops every 40 "
           "poses, GPS every 5; f32 on the card; dense and PCG agree at 256 "
           "and 512; every solve within 1e-3 in cost and 1e-2 m of float64 on the CPU): "
-          + "; ".join(lines))
+          + "; ".join(lines) + "; " + _singular_checks(dev))
+
+# The JAX package's runs on the datasets of phases 10 and 11
+# (``stage2_parity.py icp2planes`` / ``fpfh`` on the CPU): each number is
+# [key 0, key 1, key 2] over three ``jax.random`` keys; a card run must
+# land within the keys' spread (max - min) of key 0 (its draws come from
+# torch, so it is one more key), in phase 10 within 1e-3 m if that is
+# larger (PLANES_ATE_FLOOR: the two-plane ICP's ground half leaves x, y
+# and yaw to f32 rounding, and the card's stage 1 is the port's)
+REF_PLANES_ATE1 = [0.006688306900330926, 0.006798973462319791, 0.006730164392021736]
+REF_PLANES_FALLBACKS = [0, 0, 0]
+REF_PLANES_ATE2 = [0.28503296013422014, 0.28504610170549355, 0.2850087891951949]
+# the (i, j) closures all three keys accepted, in order
+REF_PLANES_CLOSURES = [(250, 0), (250, 4), (250, 1), (250, 5), (255, 4), (255, 8),
+                       (255, 2), (255, 6), (255, 1), (255, 5), (255, 3), (255, 7),
+                       (255, 5), (255, 9), (255, 0), (255, 4)]
+REF_FPFH_ATE1 = [0.0017819840623159219, 0.0017994864586416731, 0.0017911573194031205]
+REF_FPFH_FALLBACKS = [0, 0, 0]
+REF_FPFH_SHARE = [1.0, 1.0, 1.0]  # pairs within 0.5 m of the true motion
+PLANES_ATE_FLOOR = 1e-3
+# phase 11: the card's FPFH against the same function on the CPU.  A bin
+# edge can send a pair to the next bin (atan2, floor and the cross products
+# round differently), which moves a row by ~100/k (k ~ 60 neighbours) in
+# two bins; the first run on the H100 measured no such row: 0 of 4271 rows
+# beyond 1e-4, the largest row difference 1.53e-5 (2 ulp of 100), so a row
+# may differ by 1e-4 and at most 0.1% of the rows (4 here) may flip a bin
+FPFH_ROW_TOL = 1e-4         # a row differs when any entry is off by more
+FPFH_ROWS_DIFFERING = 1e-3  # share of valid rows that may differ
+STORE_FPFH_PAIRS = ((0, 1), (1, 2), (2, 3), (3, 4))
+
+
+def _within_spread(name: str, got: float, ref: list, floor: float = 0.0) -> str:
+    tol = max(max(ref) - min(ref), floor)
+    if not np.isfinite(got) or abs(got - ref[0]) > tol:
+        fail(f"{name} {got} m, the reference's {ref[0]} m +- {tol} (keys {ref})")
+    return f"{got:.7f} m (the reference's {ref[0]:.7f} +- {tol:.2e}, keys {ref})"
+
+
+@contextlib.contextmanager
+def _k1_inputs():
+    """Record, during one run, the inputs of the first and the last K1
+    call the ICP makes at each shape (B, S, T): {shape: [first, last]},
+    each (src, tgt, tgt_mask).  The spy keeps references (no copies, no
+    launches): the ICP makes a fresh source each iteration and never
+    writes its targets."""
+    rec = {}
+    real = icp_mod.nn_search
+
+    def spy(src, tgt, tgt_mask, impl="vpu_t"):
+        if impl != "vpu_t":
+            fail(f"the ICP searched with {impl}, not K1")
+        calls = rec.setdefault((src.shape[0], src.shape[1], tgt.shape[-2]), [None, None])
+        calls[1] = (src, tgt, tgt_mask)
+        if calls[0] is None:
+            calls[0] = calls[1]
+        return real(src, tgt, tgt_mask, impl)
+
+    icp_mod.nn_search = spy
+    try:
+        yield rec
+    finally:
+        icp_mod.nn_search = real
+
+
+def _hold_k1(label: str, rec: dict, dev) -> str:
+    """K1 against its plain version on every recorded input of a run (the
+    run's own clouds, poses and split masks): indices equal, d2
+    bit-equal.  Returns the shapes, the valid targets per row and each
+    shape's launch geometry."""
+    if not rec:
+        fail(f"{label}: the ICP made no K1 call")
+    notes = []
+    for (b, n_src, n_tgt), calls in sorted(rec.items()):
+        for k, (src, tgt, tm) in zip(("first", "last"), calls):
+            i_k, d_k = nn_search(src, tgt, tm)
+            i_p, d_p = nn_search_plain(src, tgt, tm)
+            torch.cuda.synchronize()
+            if not torch.equal(i_k, i_p) or not torch.equal(d_k, d_p):
+                fail(f"{label}: K1 at B={b}, S={n_src}, T={n_tgt} ({k} call) differs "
+                     f"from the plain version ({int((i_k != i_p).sum())} indices)")
+        g = _cuda.sweep_geometry(b, n_src, n_tgt, dev)
+        valid = calls[0][2].sum(-1).tolist()
+        notes.append(f"B={b}, S={n_src}, T={n_tgt} (first and last call; valid targets "
+                     f"per row {min(valid)}-{max(valid)}) grid {g['grid']} cluster "
+                     f"{g['cluster']}")
+    return f"{label} K1 plain-equal at " + "; ".join(notes)
+
+
+def _method_dataset(tmp, method):
+    d = os.path.join(tmp, method)
+    t0 = time.time()
+    info = workload.method_dataset(d, method)
+    return d, info["T_gt"], time.time() - t0
+
+
+def _scanmatch(d, extra=()):
+    """``cli scanmatch`` with the launch counts set to 0 just before and
+    read just after: (launches, profile, stdout)."""
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli.main(["scanmatch", "-i", d, "--capacity", str(CAPACITY), *extra])
+    launches = dict(_cuda.launch_counts)
+    if rc != 0:
+        fail(f"cli scanmatch on {os.path.basename(d)} returned non-zero")
+    with open(f"{d}/robot0/viz/scanmatcher_profile.json") as f:
+        return launches, json.load(f), out.getvalue()
+
+
+def _preprocess_seconds(raw, method, dev):
+    cfg = IcpConfig(capacity=CAPACITY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scans, _ = sm.preprocess_all(*raw, cfg, method, VOXEL, dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, scans
+
+
+def phase_planes(tmp, smi, dev):
+    """Stage 1 and stage 2 under icp2planes at full width (phase 4's scans)."""
+    d, T_gt, gen_s = _method_dataset(tmp, "icp2planes")
+    with _k1_inputs() as rec1:
+        launches, prof, _ = _scanmatch(d)
+    for k in ("nn_sweep", "ball_moments"):
+        if launches[k] <= 0:
+            fail(f"phase 10 stage 1 did not launch kernel {k}")
+    _, T_glob = EurocDataset(d).read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
+    ate1 = _within_spread("phase 10 stage-1 ATE", ate(T_glob, T_gt)["rmse"], REF_PLANES_ATE1,
+                          PLANES_ATE_FLOOR)
+    fb = prof["pairs_fallback_to_seed"]
+    if not min(REF_PLANES_FALLBACKS) <= fb <= max(REF_PLANES_FALLBACKS):
+        fail(f"phase 10: {fb} pairs fell back to their seed, the reference "
+             f"{REF_PLANES_FALLBACKS} over its keys")
+    # the ground split's share of preprocessing, timed apart on the card
+    euroc = EurocDataset(d)
+    times = euroc.read_csv("/robot0/lidar/data.csv")["#timestamp [ns]"]
+    raw = sm.load_scans(euroc, times, IcpConfig().raw_capacity)
+    split = [_preprocess_seconds(raw, m, dev)[0] for m in ("icp2planes", "icppointplane")
+             for _ in range(2)]
+    t_split, t_plain = min(split[:2]), min(split[2:])
+
+    slam = f"{d}/robot0/SLAM"
+    calls = []
+    real = icp_mod.icp_two_planes
+    icp_mod.icp_two_planes = lambda *a, **kw: calls.append(len(a[-2])) or real(*a, **kw)
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()), _k1_inputs() as rec2:
+            rc = cli.main(["graph", "-i", d, "--capacity", str(STAGE2_CAPACITY)])
+        wall = time.time() - t0
+        launches2 = dict(_cuda.launch_counts)
+    finally:
+        icp_mod.icp_two_planes = real
+    if rc != 0:
+        fail("phase 10 stage 2 returned non-zero")
+    with open(f"{d}/robot0/viz/graphslam_profile.json") as f:
+        prof2 = json.load(f)
+    if prof2["method"] != "icp2planes" or prof2["loop_icp_pairs"] <= 0 or not calls:
+        fail(f"phase 10 stage 2 ran no two-plane loop-closure ICP ({prof2['method']}, "
+             f"{prof2['loop_icp_pairs']} pairs, {len(calls)} calls)")
+    for k in ("nn_sweep", "ball_moments"):
+        if launches2[k] <= 0:
+            fail(f"phase 10 stage 2 did not launch kernel {k}")
+    with open(f"{slam}/loop_closures.csv") as f:
+        closures = [tuple(int(v) for v in row.split(",")[1:])
+                    for row in f.read().split()[1:]]
+    _, T_sol = euroc.read_trajectory("/robot0/SLAM/solution_graphslam.csv")
+    ate2 = _within_spread("phase 10 stage-2 ATE", ate(T_sol, T_gt)["rmse"], REF_PLANES_ATE2,
+                          PLANES_ATE_FLOOR)
+    held = (_hold_k1("stage 1", rec1, dev) + "; "
+            + _hold_k1("stage 2 loop ICP", rec2, dev))
+    print(f"phase 10 icp2planes ({N_SCANS} scans x {SCAN_POINTS} points, voxel {VOXEL}, "
+          f"capacity {CAPACITY}; dataset {gen_s:.1f} s): stage 1 (cli scanmatch) "
+          f"load+preprocess {prof['load_preprocess_seconds']} s (preprocessing alone "
+          f"{t_split:.4f} s with the ground split, {t_plain:.4f} s without: split share "
+          f"{(t_split - t_plain) / t_split:.1%}), ICP {prof['icp_seconds']} s, "
+          f"{prof['frames_per_second']} ICP frames/s, ICP iterations mean "
+          f"{prof['icp_iterations_mean']:.3f} max {prof['icp_iterations_max']}, "
+          f"{fb} pairs fell back (the reference {REF_PLANES_FALLBACKS}), ATE {ate1}; "
+          f"launches K1 {launches['nn_sweep']}, K2 {launches['ball_moments']}; "
+          f"stage 2 (cli graph, store capacity {STAGE2_CAPACITY} at voxel None): ATE "
+          f"{ate2}; {prof2['loop_closures_accepted']} closures "
+          + " ".join(f"{i}-{j}" for i, j in closures) + ", the reference's "
+          + " ".join(f"{i}-{j}" for i, j in REF_PLANES_CLOSURES)
+          + f"; {prof2['loop_icp_pairs']} loop ICP pairs in two-plane batches of "
+          f"{calls}; store {prof2['store_load_preprocess_seconds']} s, solve+loop "
+          f"{prof2['solve_loop_seconds']} s, loop ICP {prof2['loop_icp_seconds']} s, "
+          f"wall {wall:.3f} s; launches K1 {launches2['nn_sweep']}, K2 "
+          f"{launches2['ball_moments']}; {held}; card {smi}")
+
+
+def phase_fpfh(tmp, smi, dev):
+    """Stage 1 under fpfh at full width, reduced depth (the box world)."""
+    d, T_gt, gen_s = _method_dataset(tmp, "fpfh")
+    runs = []
+    for k in range(2):
+        with (_k1_inputs() if k == 0 else contextlib.nullcontext({})) as rec:
+            launches, prof, _ = _scanmatch(d)
+        if k == 0:
+            held = _hold_k1("stage 1", rec, dev)
+        files = {}
+        for name in ("lidar_times.csv", "scanmatcher_relative.csv",
+                     "scanmatcher_global.csv"):
+            with open(f"{d}/robot0/scanmatcher/{name}", "rb") as f:
+                files[name] = f.read()
+        runs.append((launches, prof, files))
+    (launches, prof, files), (_, prof_b, files_b) = runs
+    for name in files:
+        if files[name] != files_b[name]:
+            fail(f"phase 11: {name} differs between two runs")
+    for k in ("nn_sweep", "ball_moments"):
+        if launches[k] <= 0:
+            fail(f"phase 11 stage 1 did not launch kernel {k}")
+    euroc = EurocDataset(d)
+    _, T_glob = euroc.read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
+    _, T_rel = euroc.read_trajectory("/robot0/scanmatcher/scanmatcher_relative.csv")
+    rel_gt = np.einsum("nij,njk->nik", np.linalg.inv(T_gt[:-1]), T_gt[1:])
+    share = float((np.linalg.norm(T_rel[:, :3, 3] - rel_gt[:, :3, 3], axis=1) < 0.5).mean())
+    if share < min(REF_FPFH_SHARE) - (max(REF_FPFH_SHARE) - min(REF_FPFH_SHARE)):
+        fail(f"phase 11: {share:.3f} of the pairs within 0.5 m, the reference "
+             f"{REF_FPFH_SHARE} over its keys")
+    ate1 = _within_spread("phase 11 stage-1 ATE", ate(T_glob, T_gt)["rmse"], REF_FPFH_ATE1)
+    fb = prof["pairs_fallback_to_seed"]
+    if not min(REF_FPFH_FALLBACKS) <= fb <= max(REF_FPFH_FALLBACKS):
+        fail(f"phase 11: {fb} pairs fell back, the reference {REF_FPFH_FALLBACKS}")
+
+    # the main path's shapes: the first 4 scans preprocessed on the card
+    times = euroc.read_csv("/robot0/lidar/data.csv")["#timestamp [ns]"]
+    raw = sm.load_scans(euroc, times[:5], IcpConfig().raw_capacity)
+    _, scans = _preprocess_seconds(raw, "fpfh", dev)
+    radius = IcpConfig().fpfh_radius
+    ng = Cloud(scans.points[:4], scans.nonground_mask[:4], scans.normals[:4])
+    f_card = compute_fpfh(ng, radius)
+    one = Cloud(*(x[:1].cpu() for x in (ng.points, ng.mask, ng.normals)))
+    f_cpu = compute_fpfh(one, radius)[0].numpy()
+    m = one.mask[0].numpy()
+    row = np.abs(f_card[0].cpu().numpy() - f_cpu).max(axis=1)[m]
+    hist = {t: int((row > t).sum()) for t in (1e-4, 1e-3, 1e-2, 1e-1, 1.0, 10.0)}
+    if (row > FPFH_ROW_TOL).mean() > FPFH_ROWS_DIFFERING or not np.isfinite(row).all():
+        fail(f"phase 11: card FPFH rows beyond {FPFH_ROW_TOL} of the CPU's: {hist} of "
+             f"{m.sum()} (max {row.max()})")
+    ms_fpfh = cuda_ms(lambda: compute_fpfh(ng, radius), 3, warmup=1) / 4
+    # one pair's feature search, card against the CPU
+    src_f, tgt_f = f_card[1:2], f_card[0:1]
+    i_k, d1_k, d2_k = nn2_search(src_f, tgt_f, ng.mask[:1])
+    i_c, d1_c, d2_c = nn2_search(src_f.cpu(), tgt_f.cpu(), ng.mask[:1].cpu())
+    scale = 1e-5 * (torch.sum(src_f.cpu() ** 2, -1) + torch.sum(tgt_f.cpu() ** 2, -1).amax())
+    clear = (d2_c - d1_c > 2 * scale)[0].numpy()
+    same = (i_k.cpu() == i_c)[0].numpy()
+    d_err = float(torch.maximum((d1_k.cpu() - d1_c).abs() / scale,
+                                (d2_k.cpu() - d2_c).abs() / scale).max())
+    if not same[clear].all() or d_err > 1.0:
+        fail(f"phase 11 nn2_search: card differs from the CPU on "
+             f"{int((~same[clear]).sum())} clear rows, d2 error {d_err} x tolerance")
+    # RANSAC of the 4 consecutive pairs, as stage 1 groups them
+    gp = GlobalRegParams(fpfh_radius=radius, icp=ICPParams(max_correspondence_distance=10.0))
+    s_idx, t_idx = [1, 2, 3, 4], [0, 1, 2, 3]
+    f_all = compute_fpfh(Cloud(scans.points, scans.nonground_mask, scans.normals), radius)
+    src = Cloud(scans.points[s_idx], scans.nonground_mask[s_idx], scans.normals[s_idx])
+    tgt = Cloud(scans.points[t_idx], scans.nonground_mask[t_idx], scans.normals[t_idx])
+    ms_ransac = cuda_ms(lambda: ransac_feature_registration(
+        src, f_all[s_idx], tgt, f_all[t_idx], gp, torch.Generator().manual_seed(0)),
+        3, warmup=1) / 4
+    # the store's fpfh registration on overlapping pairs, against the truth
+    store = KeyframeStore.from_arrays(scans.points, scans.mask, scans.normals,
+                                      method="fpfh", cfg=IcpConfig(capacity=CAPACITY),
+                                      ground_mask=scans.ground_mask,
+                                      nonground_mask=scans.nonground_mask)
+    pairs = np.array(STORE_FPFH_PAIRS)
+    with _k1_inputs() as rec:
+        T_store = store.compute_transformations_batch(
+            pairs, np.tile(np.eye(4, dtype=np.float32), (len(pairs), 1, 1)))
+    held += "; " + _hold_k1("the store's fpfh", rec, dev)
+    e_pos, e_rot = _pose_err(T_store, np.stack([np.linalg.inv(T_gt[i]) @ T_gt[j]
+                                                for i, j in pairs]))
+    if e_pos.max() > 0.1 or e_rot.max() > 0.02:
+        fail(f"phase 11: the store's fpfh registration is off the truth: "
+             f"{e_pos} m, {e_rot} rad")
+    print(f"phase 11 fpfh ({len(T_gt)} box-world scans x {SCAN_POINTS} points within "
+          f"{workload.FPFH_RANGE} m, voxel {VOXEL}, capacity {CAPACITY}, radius {radius}; "
+          f"dataset {gen_s:.1f} s): cli scanmatch x2, CSVs byte-identical; "
+          f"load+preprocess {prof['load_preprocess_seconds']} / "
+          f"{prof_b['load_preprocess_seconds']} s, registration (FPFH + RANSAC + ICP) "
+          f"{prof['icp_seconds']} / {prof_b['icp_seconds']} s, "
+          f"{prof['frames_per_second']} / {prof_b['frames_per_second']} frames/s; "
+          f"{share:.3f} of the pairs within 0.5 m (the reference {REF_FPFH_SHARE}), "
+          f"{fb} fell back, ATE {ate1}; launches K1 {launches['nn_sweep']}, K2 "
+          f"{launches['ball_moments']}; FPFH {ms_fpfh:.3f} ms per cloud (B=4, "
+          f"{int(ng.mask.sum(1).max())} non-ground points at most), card vs CPU rows "
+          f"beyond [1e-4, 1e-3, 1e-2, 0.1, 1, 10]: {list(hist.values())} of {int(m.sum())}, "
+          f"max {row.max():.3g}; nn2_search S=T={CAPACITY}, D=33: indices equal on "
+          f"{int(clear.sum())} clear rows ({int((~same).sum())} differ in all), d2 within "
+          f"{d_err:.3f} x 1e-5 (|s|^2 + |t|^2); RANSAC {ms_ransac:.3f} ms per pair "
+          f"(B=4, 8192 hypotheses); store fpfh pairs {pairs.tolist()} off the truth by "
+          + ", ".join(f"{p:.4f} m / {r:.4f} rad" for p, r in zip(e_pos, e_rot))
+          + f"; {held}; card {smi}")
 
 
 def main():
@@ -1006,6 +1370,8 @@ def main():
         res["nn_pruned"] = phase_k5(rng, dev)
         launches = phase_nn_impls(d, T_gt, dev)
         stage2 = phase_stage2(d, T_gt, ate1, smi, dev)
+        phase_planes(tmp, smi, dev)
+        phase_fpfh(tmp, smi, dev)
     phase_solvers(dev)
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1

@@ -5,7 +5,11 @@
 from lidar_slam_arvc_tpu_torch.cloud.cloud import (
     Cloud, compact_counted, crop_radius_height, from_arrays, from_numpy,
 )
+from lidar_slam_arvc_tpu_torch.cloud.fpfh import compute_fpfh
 from lidar_slam_arvc_tpu_torch.cloud.normals import estimate_normals
+from lidar_slam_arvc_tpu_torch.cloud.plane import (
+    ransac_ground_plane, refine_plane_lsq, split_by_plane,
+)
 from lidar_slam_arvc_tpu_torch.cloud.voxel import (
     addressable_extent, voxel_downsample_counted,
 )
@@ -13,5 +17,6 @@ from lidar_slam_arvc_tpu_torch.cloud.voxel import (
 __all__ = [
     "Cloud", "from_arrays", "from_numpy", "crop_radius_height",
     "compact_counted", "voxel_downsample_counted", "addressable_extent",
-    "estimate_normals",
+    "estimate_normals", "ransac_ground_plane", "split_by_plane",
+    "refine_plane_lsq", "compute_fpfh",
 ]

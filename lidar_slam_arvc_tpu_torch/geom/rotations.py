@@ -1,10 +1,12 @@
 """Rotation helpers on tensors: XYZ-mobile Euler angles and the SO(3) log.
 
 Counterpart of the parts of ``lidar_slam_arvc_tpu/geom/rotations.py`` that
-stage 2 needs: ``normalize_angle``, ``rot_to_euler_both``/``rot_to_euler``
-(reference artelib/tools.py:241-275, both branches), ``so3_vee`` and
-``so3_log``, which the pose-graph residuals evaluate on every LM step at
-rotations near the identity and which stays exact near pi too.
+stage 2 and the two-plane ICP need: ``normalize_angle``,
+``euler_to_rot`` (reference artelib/tools.py:226-238),
+``rot_to_euler_both``/``rot_to_euler`` (artelib/tools.py:241-275, both
+branches), ``so3_vee`` and ``so3_log``, which the pose-graph residuals
+evaluate on every LM step at rotations near the identity and which stays
+exact near pi too.
 """
 
 from __future__ import annotations
@@ -17,6 +19,19 @@ import torch
 def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     """Wrap angles elementwise to [-pi, pi]."""
     return torch.atan2(torch.sin(theta), torch.cos(theta))
+
+
+def euler_to_rot(abg: torch.Tensor) -> torch.Tensor:
+    """Euler [alpha, beta, gamma] (..., 3) -> R = Rx @ Ry @ Rz (..., 3, 3),
+    the product written out as the reference writes it."""
+    a, b, g = abg.unbind(-1)
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    cg, sg = torch.cos(g), torch.sin(g)
+    rows = ((cb * cg, -cb * sg, sb),
+            (ca * sg + sa * sb * cg, ca * cg - sa * sb * sg, -sa * cb),
+            (sa * sg - ca * sb * cg, sa * cg + ca * sb * sg, ca * cb))
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
 def rot_to_euler_both(R: torch.Tensor):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from lidar_slam_arvc_tpu_torch.geom.rotations import rot_to_euler, so3_log
+from lidar_slam_arvc_tpu_torch.geom.rotations import euler_to_rot, rot_to_euler, so3_log
 
 
 def _eye3(like: torch.Tensor) -> torch.Tensor:
@@ -91,6 +91,11 @@ def make_transform(position: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
                           device=top.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def transform_from_euler(position: torch.Tensor, abg: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) from a position and XYZ-mobile Euler angles."""
+    return make_transform(position, euler_to_rot(abg))
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from lidar_slam_arvc_tpu_torch.graph.solver import _mv
+from lidar_slam_arvc_tpu_torch.graph.solver import _mv, inv_or_nan
 
 
 class BCRLevel(NamedTuple):
@@ -39,7 +39,7 @@ def _t(a):
 def bcr_factor(D: torch.Tensor, E: torch.Tensor):
     """Factor the SPD block-tridiagonal matrix (D (N,6,6) diagonal, E
     (N,6,6) superdiagonal, E[N-1] = 0); N a power of two.  Returns
-    (levels, Dinv_root)."""
+    (levels, Dinv_root); the inverse of a singular block is NaN."""
     N = D.shape[0]
     if N & (N - 1):
         raise ValueError(f"bcr_factor needs a power-of-two block count, got {N}")
@@ -48,7 +48,7 @@ def bcr_factor(D: torch.Tensor, E: torch.Tensor):
     while N > 1:
         D_even, D_odd = D[0::2], D[1::2]
         E_up, E_dn = E[0::2], E[1::2]
-        Dinv_odd = torch.linalg.inv_ex(D_odd)[0]
+        Dinv_odd = inv_or_nan(D_odd)
         V = E_up @ Dinv_odd
         U_rest = _t(E_dn[:-1]) @ Dinv_odd[:-1]
         U = torch.cat([zero, U_rest])
@@ -57,7 +57,7 @@ def bcr_factor(D: torch.Tensor, E: torch.Tensor):
         E = -(V @ E_dn)
         levels.append(BCRLevel(Dinv_odd, E_up, E_dn, U, V))
         N //= 2
-    return levels, torch.linalg.inv_ex(D[0])[0]
+    return levels, inv_or_nan(D[0])
 
 
 def bcr_solve(levels, Dinv_root: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ import torch
 from lidar_slam_arvc_tpu_torch.graph.bcr import bcr_factor, bcr_solve
 from lidar_slam_arvc_tpu_torch.graph.factors import FactorData
 from lidar_slam_arvc_tpu_torch.graph.solver import (
-    Linearized, _mv, _retract, graph_cost, linearize, lm_schedule,
+    Linearized, _mv, _retract, graph_cost, inv_or_nan, linearize, lm_schedule,
 )
 
 PRECONDS = ("auto", "bcr", "tridiag", "jacobi")
@@ -51,12 +51,12 @@ def _build_tridiag_precond(A: torch.Tensor, E: torch.Tensor):
     """Block LDL^T of the block-tridiagonal matrix (A, E): (Uinv, W) with
     U_k = A_k - W_k E_{k-1}, W_k = E_{k-1}^T U_{k-1}^-1, one 6x6 step per
     pose."""
-    Uinv = [torch.linalg.inv_ex(A[0])[0]]
+    Uinv = [inv_or_nan(A[0])]
     W = [torch.zeros_like(A[0])]
     for k in range(1, A.shape[0]):
         Wk = E[k - 1].transpose(-1, -2) @ Uinv[-1]
         W.append(Wk)
-        Uinv.append(torch.linalg.inv_ex(A[k] - Wk @ E[k - 1])[0])
+        Uinv.append(inv_or_nan(A[k] - Wk @ E[k - 1]))
     return torch.stack(Uinv), torch.stack(W)
 
 
@@ -80,7 +80,7 @@ def _preconditioner(lin: Linearized, f: FactorData, lam: float, precond: str):
         precond = "bcr" if (N & (N - 1)) == 0 else "tridiag"
     if precond == "jacobi":
         D = lin.blocks[f.diag_pos]
-        Minv = torch.linalg.inv_ex(D * (1.0 + lam) + 1e-8 * _eye6(D))[0]
+        Minv = inv_or_nan(D * (1.0 + lam) + 1e-8 * _eye6(D))
         return lambda r: _mv(Minv, r)
     A, E = _tridiag_blocks(lin, f, lam)
     if precond == "bcr":

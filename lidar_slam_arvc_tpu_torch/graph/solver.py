@@ -32,6 +32,15 @@ def _mv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, x[..., None])[..., 0]
 
 
+def inv_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of (..., n, n) blocks, NaN wherever a block is
+    singular (``inv_ex``'s info != 0), on every device: the CPU's LU gives
+    inf/NaN there as ``jnp.linalg.inv`` does, CUDA's result is undefined,
+    and a NaN preconditioner makes the LM reject the step."""
+    inv, info = torch.linalg.inv_ex(A)
+    return torch.where((info == 0)[..., None, None], inv, torch.nan)
+
+
 def _require_f32_matmul(t: torch.Tensor) -> None:
     """Raise if matmuls on ``t``'s device may round their inputs to TF32."""
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -168,7 +177,10 @@ def marginal_covariances(poses: torch.Tensor, f: FactorData, n_active: int,
     (gtsam.Marginals parity, reference graphSLAM.py:117-137): the diagonal
     blocks of H^-1, from ONE Cholesky of the equilibrated S H S and
     back-substitution of ``chunk`` poses' unit columns at a time.  Rows of
-    inactive poses are meaningless; slice [:n_active]."""
+    inactive poses are meaningless; slice [:n_active].  Where the Cholesky
+    fails (a graph with a free gauge) every block is NaN, as the
+    reference's ``cho_factor``/``cho_solve`` give; a tensor ``where``, so
+    no host synchronisation."""
     n = poses.shape[0]
     chunk = min(chunk, n)
     if n % chunk:
@@ -176,7 +188,7 @@ def marginal_covariances(poses: torch.Tensor, f: FactorData, n_active: int,
     H, _ = _assemble(poses, f, n_active)
     H = H + 1e-9 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
     s = torch.rsqrt(torch.clamp(torch.diagonal(H), min=1e-30))
-    L, _ = torch.linalg.cholesky_ex(H * s[:, None] * s[None, :])
+    L, info = torch.linalg.cholesky_ex(H * s[:, None] * s[None, :])
     C6 = 6 * chunk
     k = torch.arange(chunk, device=H.device)
     out = []
@@ -186,7 +198,7 @@ def marginal_covariances(poses: torch.Tensor, f: FactorData, n_active: int,
         rhs[cols, torch.arange(C6, device=H.device)] = s[cols]
         X = torch.cholesky_solve(rhs, L) * s[:, None]
         out.append(X.reshape(n, 6, chunk, 6)[c0 // 6 + k, :, k, :])
-    return torch.cat(out)
+    return torch.where(info == 0, torch.cat(out), torch.nan)
 
 
 def lm_schedule(step, poses: torch.Tensor, cost0: torch.Tensor,

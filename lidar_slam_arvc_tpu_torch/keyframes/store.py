@@ -4,13 +4,21 @@ Counterpart of ``lidar_slam_arvc_tpu/keyframes/store.py`` (the reference's
 KeyFrameManager, keyframemanager/keyframemanager.py:8-184): every scan is
 loaded and preprocessed at once (``pipeline.scanmatcher.load_scans`` and
 ``preprocess_all``; loop closing wants full resolution, voxel None), and
-registration between any set of (i, j) pairs is one gather plus one
-batched ICP over them (``icp_batch``; K1 for the correspondences, K2 for
-the normals at load).
+registration between any set of (i, j) pairs is one batched call over
+them under the store's method (reference keyframes/store.py:288-320):
 
-Methods ``icppointplane`` and ``icppointpoint``; ``icp2planes`` and
-``fpfh`` are not ported yet (ROADMAP M7) and raise, as do sharded stores
-and multi-process loading (M8).
+* ``icppointplane``, ``icppointpoint``: one gather and one ``icp_batch``
+  (K1 for the correspondences; K2 for the normals at load);
+* ``icp2planes``: ``icp_two_planes`` on the ground/non-ground masks made
+  at load, one ICP batch of twice the pairs;
+* ``fpfh``: the FPFH descriptors of the call's distinct scans, then
+  ``global_registration``, its RANSAC drawing from
+  ``torch.Generator().manual_seed(0)`` on every call, as the reference
+  keys every call with ``PRNGKey(0)``.
+
+The ground planes are drawn from ``seeded_generator(PLANE_SEED, i)`` for
+scan i, as the reference's store preprocesses with seed 0.  Sharded
+stores and multi-process loading (M8) are not ported.
 """
 
 from __future__ import annotations
@@ -20,20 +28,23 @@ import torch
 
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset
 from lidar_slam_arvc_tpu_torch.ops._cuda import torch_device
-from lidar_slam_arvc_tpu_torch.pipeline.preprocess import METHODS
-from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch
+from lidar_slam_arvc_tpu_torch.pipeline.preprocess import (
+    METHODS as REGISTRATION_METHODS, PLANE_SEED,
+)
+from lidar_slam_arvc_tpu_torch.registration.global_reg import (
+    GlobalRegParams, fpfh_pairs, scan_features,
+)
+from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch, two_planes_pairs
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 
-REGISTRATION_METHODS = ("icppointpoint", "icppointplane", "icp2planes", "fpfh")
+# the fpfh RANSAC's seed on every call, as the reference's PRNGKey(0)
+FPFH_SEED = 0
 
 
 def _validate_method(method: str) -> str:
     if method not in REGISTRATION_METHODS:
         raise ValueError(f"unknown registration method {method!r}; "
                          f"expected one of {REGISTRATION_METHODS}")
-    if method not in METHODS:
-        raise NotImplementedError(f"registration method {method!r} is not "
-                                  "ported yet (ROADMAP M7)")
     return method
 
 
@@ -50,17 +61,22 @@ class KeyframeStore:
         self.points = None
         self.mask = None
         self.normals = None
+        self.ground_mask = None
+        self.nonground_mask = None
         self.overflow = None   # (N,) voxels dropped per scan (capacity)
         self.n_loaded_locally = 0
 
     @classmethod
     def from_arrays(cls, points, mask, normals, method: str = "icppointplane",
-                    cfg: IcpConfig | None = None) -> "KeyframeStore":
+                    cfg: IcpConfig | None = None, ground_mask=None,
+                    nonground_mask=None) -> "KeyframeStore":
         """A store backed by already-preprocessed stacked tensors (N, C, 3),
-        (N, C), (N, C, 3), on their device."""
+        (N, C), (N, C, 3), on their device; icp2planes and fpfh also need
+        the (N, C) ground and non-ground masks."""
         store = cls(None, np.arange(points.shape[0]), method=method, cfg=cfg,
                     device=points.device)
         store.points, store.mask, store.normals = points, mask, normals
+        store.ground_mask, store.nonground_mask = ground_mask, nonground_mask
         store.n_loaded_locally = points.shape[0]
         return store
 
@@ -83,9 +99,11 @@ class KeyframeStore:
             self.scan_times = self.scan_times[::keyframe_sampling]
         raw_pts, raw_mask = load_scans(EurocDataset(self.directory),
                                        self.scan_times, self.cfg.raw_capacity)
-        self.points, self.mask, self.normals, self.overflow = preprocess_all(
+        scans, self.overflow = preprocess_all(
             raw_pts, raw_mask, self.cfg, self.method, self.voxel_size,
-            self.device)
+            self.device, seed=PLANE_SEED)
+        self.points, self.mask, self.normals = scans.points, scans.mask, scans.normals
+        self.ground_mask, self.nonground_mask = scans.ground_mask, scans.nonground_mask
         self.n_loaded_locally = len(self.scan_times)
         return self
 
@@ -105,7 +123,9 @@ class KeyframeStore:
     def compute_transformations_batch(self, pairs: np.ndarray,
                                       seeds: np.ndarray) -> np.ndarray:
         """Registration of (B, 2) [target i, source j] pairs from (B, 4, 4)
-        seeds, in one batched ICP: returns (B, 4, 4) float64 T_i_j."""
+        seeds under the store's method, in one batched call: returns
+        (B, 4, 4) float64 T_i_j (the fpfh method ignores the seeds, as the
+        reference does)."""
         if not self.loaded:
             raise RuntimeError("call load_and_preprocess first")
         pairs = np.asarray(pairs)
@@ -113,9 +133,24 @@ class KeyframeStore:
         ti = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
         si = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
         seeds = torch.as_tensor(np.asarray(seeds, dtype=np.float32), device=dev)
-        res = icp_batch(self.points[si], self.mask[si], self.points[ti],
-                        self.mask[ti], self.normals[ti], seeds,
-                        self._icp_params(),
-                        "point_to_point" if self.method == "icppointpoint"
-                        else "point_to_plane")
+        params = self._icp_params()
+        if self.method == "icp2planes":
+            res = two_planes_pairs(self.points, self.normals, self.ground_mask,
+                                   self.nonground_mask, si, ti, seeds, params)
+        elif self.method == "fpfh":
+            # the descriptors of the call's distinct scans, each once
+            scans, inv = torch.unique(torch.cat([si, ti]), return_inverse=True)
+            feats = scan_features(self.points[scans], self.normals[scans],
+                                  self.nonground_mask[scans],
+                                  self.cfg.fpfh_radius, self.cfg.batch_size)
+            gp = GlobalRegParams(fpfh_radius=self.cfg.fpfh_radius, icp=params)
+            res = fpfh_pairs(self.points[scans], self.mask[scans],
+                             self.normals[scans], self.nonground_mask[scans],
+                             feats, inv[:len(si)], inv[len(si):], gp,
+                             torch.Generator().manual_seed(FPFH_SEED))
+        else:
+            res = icp_batch(self.points[si], self.mask[si], self.points[ti],
+                            self.mask[ti], self.normals[ti], seeds, params,
+                            "point_to_point" if self.method == "icppointpoint"
+                            else "point_to_plane")
         return res.transform.cpu().numpy().astype(np.float64)

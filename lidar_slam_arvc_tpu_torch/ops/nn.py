@@ -20,9 +20,11 @@ impl        TPU kernel                        d2                 masked d2
 ==========  ================================  =================  ==========
 
 ``nn_search_vals`` (K4, ``_nn_kernel_vpu_tq``) is ``vpu_t`` returning the
-winner's point and normal instead of its index.  ``nn_search_xla`` is the
-counterpart of ``lidar_slam_arvc_tpu/ops/nn.py::nn_search``, the JAX
-package's matmul-form sweep: plain PyTorch there and here, no kernel.
+winner's point and normal instead of its index.  ``nn_search_xla`` and
+``nn2_search`` are the counterparts of ``lidar_slam_arvc_tpu/ops/nn.py``'s
+``nn_search`` and ``nn2_search``, the JAX package's matmul-form sweeps for
+points and for any feature width (the 33-D FPFH features): plain PyTorch
+there and here, no kernel.
 
 ``nn_search`` and ``nn_search_vals`` launch ``csrc/nn_sweep.cu`` and
 ``csrc/nn_sweep_vals.cu`` for CUDA tensors, one kernel per call (see
@@ -230,7 +232,7 @@ def nn_search_xla(src: torch.Tensor, tgt: torch.Tensor,
 
     Plain PyTorch on every device (the JAX side is XLA, no Pallas kernel);
     s.t is a full-f32 ``torch.matmul`` (TF32 off for the call).  Shapes as
-    ``nn_search``."""
+    ``nn_search``, with any width D in place of 3."""
     src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
     B, S, _ = src.shape
     T = tgt.shape[1]
@@ -248,3 +250,31 @@ def nn_search_xla(src: torch.Tensor, tgt: torch.Tensor,
             best_i = torch.where(better, a + c0, best_i)
     return _unbatched((best_i.to(torch.int32), torch.clamp(best, min=0.0)),
                       batched)
+
+
+def nn2_search(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
+               src_block: int = 1024):
+    """The two nearest valid targets per source row, for ratio tests on
+    feature matches: (idx1 int32, d2_1, d2_2), d2 clamped at 0.
+
+    Counterpart of the JAX package's ``ops/nn.py::nn2_search``: the matmul
+    form d2 = (s2 + t2) - 2 s.t (full f32, TF32 off), masked targets at
+    t2 + 1e12, any width D.  ``idx1`` is the first index of the minimum,
+    and ``d2_2`` the second-smallest value of the row's multiset, so a tie
+    gives d2_2 == d2_1, as the reference's tile merge does.  Source rows
+    are swept in blocks of ``src_block``.  Shapes (B, S, D), (B, T, D),
+    (B, T) or unbatched."""
+    src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
+    s2 = torch.sum(src * src, dim=-1)[..., None]
+    t2 = (torch.sum(tgt * tgt, dim=-1) + torch.where(tgt_mask, 0.0, BIG))[:, None]
+    outs = []
+    with _full_f32_matmul():
+        for s0 in range(0, src.shape[1], src_block):
+            cross = torch.matmul(src[:, s0:s0 + src_block], tgt.transpose(1, 2))
+            d2 = (s2[:, s0:s0 + src_block] + t2) - 2.0 * cross
+            m1, i1 = torch.min(d2, dim=-1)
+            m2 = torch.min(d2.scatter(-1, i1[..., None], torch.inf), dim=-1).values
+            outs.append((i1, m1, m2))
+    i1, m1, m2 = (torch.cat(x, dim=1) for x in zip(*outs))
+    return _unbatched((i1.to(torch.int32), torch.clamp(m1, min=0.0),
+                       torch.clamp(m2, min=0.0)), batched)

@@ -10,8 +10,10 @@ write ``robot0/SLAM/solution_graphslam.csv``,
 ``robot0/SLAM/loop_closures.csv`` and ``robot0/viz/graphslam_profile.json``.
 
 The loop-closure store is every scan at full resolution (voxel None,
-normals by K2), or stage 1's own tensors when ``run_scanmatcher`` made
-them with the same configuration; its ICPs run over K1.  The two PNGs of
+normals by K2, the ground split under icp2planes and fpfh), or stage 1's
+own tensors when ``run_scanmatcher`` made them with the same
+configuration and plane seed; it registers candidates under the slam
+parameters' ``method``, its ICPs over K1.  The two PNGs of
 the reference (uncertainty ellipses, GPS comparison) are not rendered yet:
 the marginals they would plot are still computed and timed, and the
 profile's ``uncertainty_error`` says so.
@@ -32,6 +34,7 @@ from lidar_slam_arvc_tpu_torch.io.utm import filter_gps, gps2utm
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore
 from lidar_slam_arvc_tpu_torch.loop import LoopCloser
 from lidar_slam_arvc_tpu_torch.ops import _cuda
+from lidar_slam_arvc_tpu_torch.pipeline.preprocess import PLANE_SEED
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 
 UNCERTAINTY_NOT_PORTED = ("not ported: the uncertainty.png and "
@@ -82,8 +85,10 @@ def _next_pow2(x: int) -> int:
 def _reusable(preprocessed, method, cfg: IcpConfig, scan_times) -> bool:
     """Whether stage 1's tensors are the clouds this store would load: the
     full-resolution regime, the same method, capacities, crop, normal
-    radius and scan times."""
+    radius and scan times, and the ground planes drawn from the seed the
+    store draws them from."""
     return (preprocessed is not None
+            and preprocessed.get("seed") == PLANE_SEED
             and preprocessed.get("voxel_size") is None
             and preprocessed.get("method") == method
             and preprocessed.get("capacity") == cfg.capacity
@@ -156,7 +161,9 @@ def run_graphslam(directory: str, cfg: IcpConfig | None = None,
         if store_reused:
             store = KeyframeStore.from_arrays(
                 preprocessed["points"], preprocessed["mask"],
-                preprocessed["normals"], method=method, cfg=cfg)
+                preprocessed["normals"], method=method, cfg=cfg,
+                ground_mask=preprocessed["ground_mask"],
+                nonground_mask=preprocessed["nonground_mask"])
             store.scan_times = scan_times
             store.n_loaded_locally = 0     # no PCD read from disk
         else:

@@ -1,8 +1,11 @@
-"""Batched scan preprocessing: crop -> voxel downsample (or compaction) -> normals.
+"""Batched scan preprocessing: crop -> voxel downsample (or compaction) ->
+normals (-> ground split).
 
-Counterpart of ``lidar_slam_arvc_tpu/pipeline/preprocess.py`` for the
-``icppointplane`` and ``icppointpoint`` methods; the ground-plane split of
-``icp2planes``/``fpfh`` is not ported yet (ROADMAP M7) and raises.
+Counterpart of ``lidar_slam_arvc_tpu/pipeline/preprocess.py``.  Under
+``icp2planes`` and ``fpfh`` each scan's ground plane is RANSAC-fit below
+-0.5 m (1000 hypotheses, 0.01 m inliers) and the scan split at 0.4 m into
+ground and non-ground masks (reference :69-78).  Scan k of a batch draws
+its hypotheses from ``generators[k]`` (``cloud.plane``).
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ import torch
 from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 
-METHODS = ("icppointplane", "icppointpoint")
+METHODS = ("icppointplane", "icppointpoint", "icp2planes", "fpfh")
+SPLIT_METHODS = ("icp2planes", "fpfh")
+# the ground planes' seed in stage 1 and in the keyframe store, as the
+# reference's preprocessing seed (0 in both)
+PLANE_SEED = 0
 
 
 class PreprocessedScans(NamedTuple):
@@ -24,6 +31,8 @@ class PreprocessedScans(NamedTuple):
     normals: torch.Tensor         # (N, CAP, 3) — zeros if not needed
     # occupied voxels (or valid points) BEFORE capacity truncation
     n_voxels: torch.Tensor        # (N,) int32
+    ground_mask: torch.Tensor | None = None      # (N, CAP) icp2planes, fpfh
+    nonground_mask: torch.Tensor | None = None   # (N, CAP)
 
 
 def check_voxel_extent(cfg: IcpConfig, voxel_size: float) -> None:
@@ -40,12 +49,15 @@ def check_voxel_extent(cfg: IcpConfig, voxel_size: float) -> None:
 
 def preprocess_batch(raw_pts: torch.Tensor, raw_mask: torch.Tensor,
                      cfg: IcpConfig, method: str,
-                     voxel_size: float | None) -> PreprocessedScans:
-    """Preprocess a (B, RAW, 3) batch of raw scans on their device."""
+                     voxel_size: float | None,
+                     generators=None) -> PreprocessedScans:
+    """Preprocess a (B, RAW, 3) batch of raw scans on their device.
+
+    ``generators``: one CPU ``torch.Generator`` per scan, for the ground
+    plane's draws under icp2planes and fpfh."""
     if method not in METHODS:
-        raise NotImplementedError(
-            f"preprocessing for method {method!r} is not ported yet "
-            "(ROADMAP M7); the port handles " + ", ".join(METHODS))
+        raise ValueError(f"unknown registration method {method!r}; "
+                         f"expected one of {METHODS}")
     c = cl.Cloud(raw_pts, raw_mask)
     c = cl.crop_radius_height(c, cfg.min_radius, cfg.max_radius,
                               cfg.min_height, cfg.max_height)
@@ -63,9 +75,17 @@ def preprocess_batch(raw_pts: torch.Tensor, raw_mask: torch.Tensor,
     if voxel_size is not None:
         normal_radius = max(normal_radius, 2.5 * voxel_size)
 
-    if method == "icppointplane":
-        normals = cl.estimate_normals(c, normal_radius).normals
-    else:
-        normals = torch.zeros_like(c.points)
-    return PreprocessedScans(points=c.points, mask=c.mask, normals=normals,
-                             n_voxels=n_vox)
+    if method == "icppointpoint":
+        return PreprocessedScans(points=c.points, mask=c.mask,
+                                 normals=torch.zeros_like(c.points),
+                                 n_voxels=n_vox)
+    c = cl.estimate_normals(c, normal_radius)
+    ground = nonground = None
+    if method in SPLIT_METHODS:
+        plane = cl.ransac_ground_plane(c, generators, seed_height=-0.5,
+                                       distance_threshold=0.01,
+                                       num_iterations=1000)
+        ground, nonground = (x.mask for x in cl.split_by_plane(c, plane, 0.4))
+    return PreprocessedScans(points=c.points, mask=c.mask, normals=c.normals,
+                             n_voxels=n_vox, ground_mask=ground,
+                             nonground_mask=nonground)

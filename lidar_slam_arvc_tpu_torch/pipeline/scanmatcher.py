@@ -8,13 +8,20 @@ transforms into a global trajectory in float64, and write the three
 scanmatcher CSVs and ``robot0/viz/scanmatcher_profile.json``.
 
 Path: PCD load (thread pool) -> per batch of ``cfg.batch_size`` scans on
-the device: crop, voxel downsample (or compaction), normals (K2) -> ICP
-over groups of ``cfg.batch_size`` consecutive pairs (``match_all``; K1 once
-per iteration per group, or the search ``nn_impl`` names) -> divergence
-gate -> fold -> CSVs.
+the device: crop, voxel downsample (or compaction), normals (K2), and the
+ground split under icp2planes/fpfh -> registration over groups of
+``cfg.batch_size`` consecutive pairs: ICP (``match_all``; K1 once per
+iteration per group, or the search ``nn_impl`` names), the two-plane ICP
+(one ICP batch of twice the pairs) or FPFH + RANSAC + ICP (the
+descriptors computed once per scan) -> divergence gate -> fold -> CSVs.
+
+Draws (icp2planes, fpfh): scan i's ground plane from
+``seeded_generator(seed, i)``, whatever the batch size; the fpfh matcher's
+group b of pairs from ``torch.Generator().manual_seed(b)``, as the
+reference keys its group b with ``PRNGKey(b)``.
 
 Not ported yet (they raise): mid-stage checkpointing, device meshes and
-multi-host runs, the streamed load, and the icp2planes/fpfh methods.
+multi-host runs, and the streamed load.
 """
 
 from __future__ import annotations
@@ -33,8 +40,14 @@ from lidar_slam_arvc_tpu_torch.io.euroc import TIME, EurocDataset
 from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd
 from lidar_slam_arvc_tpu_torch.io.sampling import sample_times
 from lidar_slam_arvc_tpu_torch.ops import _cuda
-from lidar_slam_arvc_tpu_torch.pipeline.preprocess import METHODS, preprocess_batch
-from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch
+from lidar_slam_arvc_tpu_torch.ops.draws import seeded_generator
+from lidar_slam_arvc_tpu_torch.pipeline.preprocess import (
+    METHODS, PLANE_SEED, SPLIT_METHODS, PreprocessedScans, preprocess_batch,
+)
+from lidar_slam_arvc_tpu_torch.registration.global_reg import (
+    GlobalRegParams, fpfh_pairs, scan_features,
+)
+from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch, two_planes_pairs
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 
 
@@ -84,22 +97,25 @@ def load_scans(euroc: EurocDataset, scan_times, raw_capacity: int,
 
 
 def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
-                   method: str, voxel_size, device):
+                   method: str, voxel_size, device, seed: int = PLANE_SEED):
     """Preprocess every scan on ``device`` in batches of cfg.batch_size.
 
-    Returns device tensors (points, mask, normals) of the whole stack and
-    the host (N,) count of voxels dropped by the capacity per scan."""
+    Returns the whole stack as ``PreprocessedScans`` of device tensors and
+    the host (N,) count of voxels dropped by the capacity per scan.  Scan
+    i's ground plane draws from ``seeded_generator(seed, i)``."""
     n = raw_pts.shape[0]
     B = cfg.batch_size
     outs = []
     for b0 in range(0, n, B):
         pts = torch.from_numpy(raw_pts[b0:b0 + B]).to(device)
         msk = torch.from_numpy(raw_mask[b0:b0 + B]).to(device)
-        outs.append(preprocess_batch(pts, msk, cfg, method, voxel_size))
-    points = torch.cat([o.points for o in outs])
-    mask = torch.cat([o.mask for o in outs])
-    normals = torch.cat([o.normals for o in outs])
-    n_vox = torch.cat([o.n_voxels for o in outs]).cpu().numpy()
+        gens = ([seeded_generator(seed, i) for i in range(b0, b0 + len(pts))]
+                if method in SPLIT_METHODS else None)
+        outs.append(preprocess_batch(pts, msk, cfg, method, voxel_size, gens))
+    scans = PreprocessedScans(*(
+        None if outs[0][k] is None else torch.cat([o[k] for o in outs])
+        for k in range(len(outs[0]))))
+    n_vox = scans.n_voxels.cpu().numpy()
     overflow = np.maximum(n_vox - cfg.capacity, 0)
     if overflow.any():
         # never silent: the tail voxels beyond the capacity were dropped
@@ -107,7 +123,19 @@ def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
               f"capacity {cfg.capacity} (max occupied voxels "
               f"{int(n_vox.max())}, {int(overflow.sum())} voxels dropped) — "
               f"raise IcpConfig.capacity or coarsen voxel_size")
-    return points, mask, normals, overflow
+    return scans, overflow
+
+
+def _by_groups(n_pairs: int, batch: int, register):
+    """``register(g, sl)`` -> ICPResult for group g (pairs ``sl``) of
+    ``batch`` pairs, over every group; returns device tensors
+    (transforms (P, 4, 4), fitness, iterations, final_delta)."""
+    if n_pairs % batch:
+        raise ValueError(f"{n_pairs} pairs are not whole groups of {batch}")
+    outs = [register(g, slice(g0, g0 + batch))
+            for g, g0 in enumerate(range(0, n_pairs, batch))]
+    return tuple(torch.cat([getattr(r, f) for r in outs]) for f in
+                 ("transform", "fitness", "iterations", "final_delta"))
 
 
 def match_all(points, mask, normals, idx_src, idx_tgt, seeds,
@@ -120,16 +148,11 @@ def match_all(points, mask, normals, idx_src, idx_tgt, seeds,
     multiple of ``batch``.  ``params.nn_impl`` selects the correspondence
     search.  Returns device tensors (transforms (P, 4, 4), fitness,
     iterations, final_delta), each over the P pairs."""
-    if len(idx_src) % batch:
-        raise ValueError(f"{len(idx_src)} pairs are not whole groups of {batch}")
-    outs = []
-    for g0 in range(0, len(idx_src), batch):
-        si, ti = idx_src[g0:g0 + batch], idx_tgt[g0:g0 + batch]
-        outs.append(icp_batch(points[si], mask[si], points[ti], mask[ti],
-                              normals[ti], seeds[g0:g0 + batch], params,
-                              method))
-    return tuple(torch.cat([getattr(r, f) for r in outs]) for f in
-                 ("transform", "fitness", "iterations", "final_delta"))
+    def register(_, sl):
+        si, ti = idx_src[sl], idx_tgt[sl]
+        return icp_batch(points[si], mask[si], points[ti], mask[ti],
+                         normals[ti], seeds[sl], params, method)
+    return _by_groups(len(idx_src), batch, register)
 
 
 def consecutive_pairs(n_scans: int, batch: int, T_seeds: np.ndarray):
@@ -158,8 +181,10 @@ def fell_back(fitness: np.ndarray, final_delta: np.ndarray,
 
 
 def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
-                      cfg: IcpConfig, method: str, progress: bool = True):
-    """Batched ICP over consecutive pairs.
+                      cfg: IcpConfig, method: str, progress: bool = True,
+                      ground_mask=None, nonground_mask=None):
+    """Batched registration of consecutive pairs under ``method``
+    (icp2planes and fpfh need the scans' ground/non-ground masks).
 
     Source = scan i+1, target = scan i.  Returns the (N-1,4,4) float64
     refined T_i_i+1 and per-pair host arrays (fitness, iterations,
@@ -174,10 +199,22 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                   else "point_to_plane")
     dev = points.device
     idx_src, idx_tgt, seeds = consecutive_pairs(points.shape[0], B, T_seeds)
-    T_all, fit, iters, delta = match_all(
-        points, mask, normals, torch.from_numpy(idx_src).to(dev),
-        torch.from_numpy(idx_tgt).to(dev), torch.from_numpy(seeds).to(dev),
-        params, icp_method, B)
+    si, ti, sd = (torch.from_numpy(a).to(dev) for a in (idx_src, idx_tgt, seeds))
+    if method in SPLIT_METHODS and (ground_mask is None or nonground_mask is None):
+        raise ValueError(f"method {method!r} needs the ground/non-ground masks")
+    if method == "icp2planes":
+        T_all, fit, iters, delta = _by_groups(len(si), B, lambda _, sl: two_planes_pairs(
+            points, normals, ground_mask, nonground_mask, si[sl], ti[sl], sd[sl],
+            params))
+    elif method == "fpfh":
+        gp = GlobalRegParams(fpfh_radius=cfg.fpfh_radius, icp=params)
+        feats = scan_features(points, normals, nonground_mask, cfg.fpfh_radius, B)
+        T_all, fit, iters, delta = _by_groups(len(si), B, lambda g, sl: fpfh_pairs(
+            points, mask, normals, nonground_mask, feats, si[sl], ti[sl], gp,
+            torch.Generator().manual_seed(g)))
+    else:
+        T_all, fit, iters, delta = match_all(points, mask, normals, si, ti, sd,
+                                             params, icp_method, B)
     T_all = T_all.cpu().numpy().astype(np.float64)[:n_pairs]
     fit = fit.cpu().numpy()[:n_pairs]
     iters = iters.cpu().numpy()[:n_pairs]
@@ -204,20 +241,23 @@ def _check_supported(cfg: IcpConfig, method: str) -> None:
         raise NotImplementedError("device meshes are not ported yet "
                                   "(ROADMAP M8)")
     if method not in METHODS:
-        raise NotImplementedError(f"method {method!r} is not ported yet "
-                                  "(ROADMAP M7)")
+        raise ValueError(f"unknown registration method {method!r}; "
+                         f"expected one of {METHODS}")
 
 
 def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
                     progress: bool = True, device="cuda",
-                    return_preprocessed: bool = False) -> dict:
+                    return_preprocessed: bool = False,
+                    seed: int = PLANE_SEED) -> dict:
     """Full stage 1 on ``device``; writes the scanmatcher CSVs and the
     profile, and returns the trajectory.
 
-    ``return_preprocessed=True`` also returns the preprocessed scan tensors
-    under ``"preprocessed"``, with the fingerprint of every configuration
-    field the preprocessing read, so that stage 2 can reuse them when it
-    wants the same clouds (``pipeline.graphslam.run_graphslam``)."""
+    ``seed`` keys the ground planes' draws under icp2planes and fpfh (the
+    reference's preprocessing seed, 0).  ``return_preprocessed=True`` also
+    returns the preprocessed scan tensors under ``"preprocessed"``, with
+    the seed and every configuration field the preprocessing read, so that
+    stage 2 reuses them only when its store would make the same clouds and
+    masks (``pipeline.graphslam.run_graphslam``)."""
     device = _cuda.torch_device(device, "run_scanmatcher")
     euroc = EurocDataset(directory)
     sm_params = euroc.read_scanmatcher_parameters()
@@ -237,16 +277,18 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
 
     t_load = time.time()
     raw_pts, raw_mask = load_scans(euroc, scan_times, cfg.raw_capacity)
-    points, mask, normals, overflow = preprocess_all(
-        raw_pts, raw_mask, cfg, method, voxel_size, device)
+    scans, overflow = preprocess_all(raw_pts, raw_mask, cfg, method,
+                                     voxel_size, device, seed=seed)
     _sync(device)
     preprocess_seconds = time.time() - t_load
     if progress:
         print(f"loaded+preprocessed {n} scans in {preprocess_seconds:.2f}s")
 
     t_icp = time.time()
-    rel_sm, stats = match_consecutive(points, mask, normals, rel_odo, cfg,
-                                      method, progress=progress)
+    rel_sm, stats = match_consecutive(
+        scans.points, scans.mask, scans.normals, rel_odo, cfg, method,
+        progress=progress, ground_mask=scans.ground_mask,
+        nonground_mask=scans.nonground_mask)
     icp_seconds = time.time() - t_icp
 
     # fold to global in float64 on the host
@@ -287,7 +329,9 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
            "profile": profile}
     if return_preprocessed:
         out["preprocessed"] = {
-            "points": points, "mask": mask, "normals": normals,
+            "points": scans.points, "mask": scans.mask, "normals": scans.normals,
+            "ground_mask": scans.ground_mask,
+            "nonground_mask": scans.nonground_mask, "seed": seed,
             "scan_times": scan_times, "voxel_size": voxel_size,
             "method": method, "capacity": int(cfg.capacity),
             "raw_capacity": int(cfg.raw_capacity),

@@ -45,7 +45,7 @@ import torch
 
 from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
 from lidar_slam_arvc_tpu_torch.geom.se3 import (
-    _hat_sq, compose, se3_exp, so3_hat, transform_points,
+    _hat_sq, compose, se3_exp, so3_hat, t2v, transform_from_euler, transform_points,
 )
 from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_vals, nn_search_xla
 from lidar_slam_arvc_tpu_torch.ops.nn_pruned import (
@@ -290,3 +290,47 @@ def icp(src: Cloud, tgt: Cloud, T_init: torch.Tensor,
                     None if tgt.normals is None else tgt.normals[None],
                     T_init[None], params, method)
     return ICPResult(*(x[0] for x in res))
+
+
+def icp_two_planes(src_ground: Cloud, tgt_ground: Cloud,
+                   src_nonground: Cloud, tgt_nonground: Cloud,
+                   T_init: torch.Tensor,
+                   params: ICPParams = ICPParams()) -> ICPResult:
+    """Point-to-plane ICP on the ground clouds (solution t1) and on the
+    non-ground clouds (t2), fused per component: [tx, ty, gamma] from t2,
+    [tz, alpha, beta] from t1 (reference keyframe.py:262-295): the ground
+    fixes height and tilt, the structure the planar motion and heading.
+
+    Batched clouds (B, CAP), the targets with normals, and T_init
+    (B, 4, 4).  The two ICPs run as ONE ``icp_batch`` of 2B pairs, ground rows first: each
+    pair's ICP is its own (it freezes on its own convergence), so the
+    numbers are those of two calls, and the search launches once per
+    iteration.  Returns the fused transform, the non-ground solve's
+    fitness and inlier RMSE, the summed iterations and the larger
+    final_delta."""
+    B = T_init.shape[0]
+    res = icp_batch(torch.cat([src_ground.points, src_nonground.points]),
+                    torch.cat([src_ground.mask, src_nonground.mask]),
+                    torch.cat([tgt_ground.points, tgt_nonground.points]),
+                    torch.cat([tgt_ground.mask, tgt_nonground.mask]),
+                    torch.cat([tgt_ground.normals, tgt_nonground.normals]),
+                    torch.cat([T_init, T_init]), params, "point_to_plane")
+    t1, t2 = t2v(res.transform[:B]), t2v(res.transform[B:])
+    T = transform_from_euler(torch.stack([t2[:, 0], t2[:, 1], t1[:, 2]], dim=-1),
+                             torch.stack([t1[:, 3], t1[:, 4], t2[:, 5]], dim=-1))
+    return ICPResult(transform=T, fitness=res.fitness[B:],
+                     inlier_rmse=res.inlier_rmse[B:],
+                     iterations=res.iterations[:B] + res.iterations[B:],
+                     final_delta=torch.maximum(res.final_delta[:B],
+                                               res.final_delta[B:]))
+
+
+def two_planes_pairs(points, normals, ground_mask, nonground_mask, si, ti,
+                     seeds, params: ICPParams):
+    """``icp_two_planes`` of the pairs (source scan si[k] onto target scan
+    ti[k]) of a stack of split scans."""
+    return icp_two_planes(
+        Cloud(points[si], ground_mask[si]),
+        Cloud(points[ti], ground_mask[ti], normals[ti]),
+        Cloud(points[si], nonground_mask[si]),
+        Cloud(points[ti], nonground_mask[ti], normals[ti]), seeds, params)

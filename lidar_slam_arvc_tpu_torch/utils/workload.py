@@ -4,6 +4,9 @@
 here: ``voxelised_scans`` renders scans of bench.py's world
 (``utils.synthetic``), crops them and voxelises them at its capacity, and
 ``k2_cases`` gives K2's (ball moments) two measured shapes.
+``method_dataset`` writes the datasets on which ``chip_smoke.py`` runs the
+``icp2planes`` and ``fpfh`` registration methods and ``stage2_parity.py``
+runs the JAX package for its reference numbers.
 """
 
 from __future__ import annotations
@@ -19,6 +22,14 @@ WORLD = {"extent": 30.0, "n_ground": 20000, "n_pillars": 40, "pillar_pts": 500}
 VOXEL = 0.2
 CAPACITY = 8192
 RADIUS = 0.5          # normal radius at a 0.2 m voxel: max(0.3, 2.5 * 0.2)
+N_SCANS = 257
+# the fpfh dataset: the box world of the JAX package's method tests
+# (tests/test_pipeline.py::TestOtherMethods), whose corners and edges give
+# the descriptors something to match, at full scan width and reduced depth
+BOX_WORLD = {"extent": 11.0, "n_ground": 14000, "n_pillars": 6,
+             "pillar_pts": 600, "n_boxes": 10, "box_pts": 2000}
+FPFH_SCANS = 33
+FPFH_RANGE = 10.0
 
 
 def cloud_points(rng: np.random.Generator, B: int, n: int,
@@ -55,3 +66,28 @@ def k2_cases(rng: np.random.Generator, dev) -> list[tuple[str, cl.Cloud, float]]
     m = rng.uniform(size=(2, 1000)) > 0.3
     ragged = cl.Cloud(torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev))
     return [("ragged", ragged, 0.3), ("scans", scans, RADIUS)]
+
+
+def method_dataset(directory: str, method: str) -> dict:
+    """Write the dataset of a registration method's card check and return
+    ``make_dataset``'s info (``T_gt`` among it).
+
+    ``icp2planes``: bench.py's workload (N_SCANS scans of SCAN_POINTS
+    points, seed 0: the scans of ``chip_smoke.py``'s phase 4) with
+    ``method: icp2planes`` in both parameter files.  ``fpfh``: FPFH_SCANS
+    scans of SCAN_POINTS points within FPFH_RANGE m of BOX_WORLD, seed 2, on
+    a 5 m circle, voxel VOXEL."""
+    if method == "icp2planes":
+        return synthetic.make_dataset(
+            directory, n_scans=N_SCANS, seed=0, scan_points=SCAN_POINTS,
+            world_kwargs=WORLD,
+            scanmatcher_params={"voxel_size": VOXEL, "method": method},
+            slam_params={"method": method})
+    if method == "fpfh":
+        return synthetic.make_dataset(
+            directory, n_scans=FPFH_SCANS, seed=2, radius=5.0,
+            scan_points=SCAN_POINTS, max_range=FPFH_RANGE,
+            world_kwargs=BOX_WORLD,
+            scanmatcher_params={"voxel_size": VOXEL, "method": method},
+            slam_params={"method": method})
+    raise ValueError(f"no card dataset for method {method!r}")

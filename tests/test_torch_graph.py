@@ -340,6 +340,49 @@ def test_marginals_match_reference_and_float64_inverse():
     assert p.stats["cg_iterations"] > 0
 
 
+def test_marginals_nan_where_the_cholesky_fails():
+    """A graph with no prior (no ``init_graph()``) leaves its gauge free:
+    H is singular, the reference's ``cho_factor`` gives NaN marginals, and
+    the port's dense path must too instead of finite, meaningless blocks
+    (both packages' PCG blocks are NaN as well)."""
+    rng = np.random.default_rng(3)
+    T_gt = synthetic.make_trajectory(8, radius=4.0)
+    g = PoseGraphRef(max_poses=8)
+    for i in range(7):
+        rel = np.linalg.inv(T_gt[i]) @ T_gt[i + 1]
+        g.add_initial_estimate(_noisy(rel, rng), i + 1)
+        g.add_edge(_noisy(rel, rng), i, i + 1, "SM")
+    p = PoseGraph.from_reference_state(reference_state(g), device="cpu")
+    ref = np.asarray(g.marginal_covariances())
+    got = p.marginal_covariances()
+    assert ref.shape == got.shape == (8, 6, 6)
+    assert np.isnan(ref).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(p.marginal_covariances(indices=[0, 3])).all()
+
+
+def test_singular_preconditioner_block_is_nonfinite():
+    """A singular 6x6 block in each PCG preconditioner's set-up gives NaN
+    where the reference's ``jnp.linalg.inv`` gives non-finite blocks (the
+    card's counterpart is tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(4)
+    M = rng.normal(size=(8, 6, 6))
+    D = (M @ M.transpose(0, 2, 1) + 6.0 * np.eye(6)).astype(np.float32)
+    E = (0.1 * rng.normal(size=(8, 6, 6))).astype(np.float32)
+    E[-1] = 0.0
+    D[[0, 3]] = 0.0      # inverted directly: 3 by BCR, 0 by the tridiagonal
+    b = np.ones((8, 6), np.float32)
+    ref = bcr_ref.bcr_solve(*bcr_ref.bcr_factor(jnp.asarray(D), jnp.asarray(E)),
+                            jnp.asarray(b))
+    assert not np.isfinite(np.asarray(ref)).all()
+    Dt, Et, bt = torch.from_numpy(D), torch.from_numpy(E), torch.from_numpy(b)
+    assert not torch.isfinite(bcr.bcr_solve(*bcr.bcr_factor(Dt, Et), bt)).all()
+    Uinv, W = pcg._build_tridiag_precond(Dt, Et)
+    assert not torch.isfinite(pcg._apply_tridiag_precond(Uinv, W, Et, bt)).all()
+    Minv = solver.inv_or_nan(Dt)
+    assert torch.isnan(Minv[[0, 3]]).all() and torch.isfinite(Minv[1:3]).all()
+
+
 def test_batched_cg_freezes_converged_columns():
     """A batch of right-hand sides gives each column the result it gets
     alone: a column that converged early stays frozen while the others
