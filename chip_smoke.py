@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through eleven phases,
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through twelve phases,
 one line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -19,8 +19,10 @@ one line each, and exits non-zero on any failure:
    slots per pair from its SASS, ``utils/sass.py``).
 4. stage 1 end to end: a synthetic EUROC dataset at bench.py's workload
    (257 scans x 12,000 points), ``pipeline.cli.main(["scanmatch", ...])``
-   in process, once to warm up and once timed; the three CSVs, K1's and
-   K2's launch counts, ATE < 0.2 m against ground truth.
+   in process (the streamed load: the native PCD parser overlapped with
+   preprocessing), once to warm up and once timed; the three CSVs, K1's
+   and K2's launch counts, ATE < 0.2 m against ground truth, no pair fallen
+   back to its seed, no PCD left to the Python parser.
 5. K3 (csrc/nn_sweep.cu, d2 forms vpu / vpu2 / mxu) and K4
    (csrc/nn_sweep_vals.cu) vs their plain versions at phase 2's shapes:
    indices equal, d2 bit-equal, K4's q and n equal; geometry as phase 2.
@@ -99,7 +101,22 @@ one line each, and exits non-zero on any failure:
    its plain version on the ICP's inputs of the first run and of the
    store's registration, as in phase 10; FPFH ms per cloud and RANSAC ms
    per pair.
-12. the last line: {"ok": true, "device": {...}}.
+12. the host paths on phase 4's dataset (run before phase 9): the 257
+   PCDs parsed by the native batch parser and by the Python parser (arrays
+   byte-equal, seconds of each over 3 runs); load+preprocess by the
+   streamed path and by the two-phase path (load, then preprocess; both
+   split), in turns over 3 runs each, the stacks bit-equal on the card;
+   ``match_consecutive`` at phase 4's shape with a checkpoint, cut back to
+   half its groups and resumed, bit-equal to the uninterrupted run; phase
+   8's renders (uncertainty.png, gps_comparison.png) or the ImportError
+   recorded without matplotlib, any other error failing; ``cli view``,
+   ``diag`` (file and count checks), ``convert`` (257 PLYs), ``convert
+   --mesh`` on 4 scans, and ``cli ingest`` of a bz2 bag of the first 20
+   scans, their odometry and GPS written by the port's ``write_bag``
+   (PCDs byte-equal to the dataset's), then ``cli scanmatch`` of the
+   ingested tree on the card (K1 and K2 launched, ATE < 0.2 m, within 1e-3
+   m / rad of phase 4's pairs); the seconds of each.
+13. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
@@ -112,8 +129,10 @@ launches of phase 8's first run.  The sweeps need sm_90a (thread block
 clusters).
 """
 
+import concurrent.futures
 import contextlib
 import importlib
+import importlib.util
 import io
 import json
 import os
@@ -129,12 +148,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from lidar_slam_arvc_tpu_torch.cloud import Cloud, compact_counted, crop_radius_height  # noqa: E402
+from lidar_slam_arvc_tpu_torch.cloud.cloud import pad_numpy  # noqa: E402
 from lidar_slam_arvc_tpu_torch.cloud.fpfh import compute_fpfh  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph import PoseGraph, make_factor_data  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph import bcr, pcg, solver  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph.factors import FACTOR_FIELDS  # noqa: E402
+from lidar_slam_arvc_tpu_torch.io import native, rosbag  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
+from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd  # noqa: E402
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
@@ -151,6 +173,7 @@ from lidar_slam_arvc_tpu_torch.utils import sass, synthetic, workload  # noqa: E
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.graph_profile import solver_graph  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate  # noqa: E402
+from lidar_slam_arvc_tpu_torch.viz.mapping import read_ply  # noqa: E402
 from lidar_slam_arvc_tpu_torch.utils.workload import (  # noqa: E402
     CAPACITY, RADIUS, SCAN_POINTS, VOXEL, WORLD, cloud_points, k2_cases,
     voxelised_scans)
@@ -448,6 +471,8 @@ def phase_stage1(tmp, smi):
     argv = ["scanmatch", "-i", d, "--capacity", str(CAPACITY)]
     if cli.main(argv) != 0:
         fail("stage 1 warm-up run returned non-zero")
+    with open(f"{d}/robot0/viz/scanmatcher_profile.json") as f:
+        warm = json.load(f)
     _cuda.reset_launch_counts()
     if cli.main(argv) != 0:
         fail("stage 1 timed run returned non-zero")
@@ -469,6 +494,9 @@ def phase_stage1(tmp, smi):
         fail(f"stage 1 ATE rmse {err['rmse']} m is not below {VOXEL} m")
     with open(f"{d}/robot0/viz/scanmatcher_profile.json") as f:
         prof = json.load(f)
+    if prof["pairs_fallback_to_seed"] or prof["pcd_files_python_parsed"]:
+        fail(f"stage 1: {prof['pairs_fallback_to_seed']} pairs fell back to "
+             f"their seed, {prof['pcd_files_python_parsed']} PCDs parsed in Python")
     fps_e2e = prof["pairs"] / (prof["load_preprocess_seconds"]
                                + prof["icp_seconds"])
     print(f"phase 4 stage 1 ({N_SCANS} scans x {SCAN_POINTS} points, capacity "
@@ -479,7 +507,11 @@ def phase_stage1(tmp, smi):
           f"{prof['icp_iterations_mean']:.3f} max {prof['icp_iterations_max']}; "
           f"{prof['pairs_fallback_to_seed']} pairs fell back to their seed; "
           f"ATE rmse {err['rmse']:.5f} m; launches {launches}; "
-          f"{prof['scans_over_capacity']} scans over capacity; dataset "
+          f"{prof['scans_over_capacity']} scans over capacity; streamed load "
+          f"(native parser, {prof['pcd_files_python_parsed']} PCDs in Python); "
+          f"the warm-up run built {warm['libraries_built']} in "
+          f"{warm['build_seconds']} s and loaded {warm['libraries_loaded_from_cache']} "
+          f"from _build/; dataset "
           f"generated in {gen_s:.1f} s; card {smi}")
     return launches, d, info["T_gt"], err["rmse"]
 
@@ -1355,6 +1387,262 @@ def phase_fpfh(tmp, smi, dev):
           + f"; {held}; card {smi}")
 
 
+# phase 12: the host paths on phase 4's dataset
+PARSE_RUNS = 3              # timed runs of each parser / load path
+MESH_SCANS = 4              # scans of the convert --mesh check
+MESH_ALPHA = "1.0"          # its alpha-shape radius (m)
+BAG_SCANS = 20              # scans of the bag ingested and scan-matched
+
+
+def _python_parse(paths, raw):
+    """The port's loader before the native parser: ``read_pcd`` and
+    ``pad_numpy`` in a pool of 4 threads."""
+    pts = np.zeros((len(paths), raw, 3), dtype=np.float32)
+
+    def one(i):
+        pts[i] = pad_numpy(read_pcd(paths[i]), raw)[0]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+        list(ex.map(one, range(len(paths))))
+    return pts
+
+
+def _spread(xs) -> str:
+    return f"min {min(xs):.4f} max {max(xs):.4f} s over {len(xs)}"
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _host_parse(paths, raw):
+    """The native batch parser against the Python parse: equal arrays."""
+    t_nat, t_py = [], []
+    for _ in range(PARSE_RUNS):
+        t, (nat, counts) = _timed(lambda: native.read_pcd_batch(paths, raw))
+        t_nat.append(t)
+        t, py = _timed(lambda: _python_parse(paths, raw))
+        t_py.append(t)
+        if (counts < 0).any() or nat.tobytes() != py.tobytes():
+            fail("phase 12: the native parse differs from the Python parse")
+    return (f"parse alone of {len(paths)} PCDs (raw capacity {raw}): native "
+            f"batch {_spread(t_nat)}, Python {_spread(t_py)} (arrays "
+            f"byte-equal)")
+
+
+def _host_load(euroc, times, cfg, method, dev):
+    """Streamed load+preprocess against the two-phase path (load, then
+    preprocess), in turns: equal stacks."""
+    rec = {"load": [], "preprocess": [], "two-phase": [], "streamed": []}
+    for r in range(PARSE_RUNS):
+        for path in (("two", "stream") if r % 2 == 0 else ("stream", "two")):
+            if path == "two":
+                t_load, raw = _timed(lambda: sm.load_scans(euroc, times, cfg.raw_capacity))
+                t_pre, (two, _) = _timed(lambda: sm.preprocess_all(
+                    *raw, cfg, method, VOXEL, dev))
+                rec["load"].append(t_load)
+                rec["preprocess"].append(t_pre)
+                rec["two-phase"].append(t_load + t_pre)
+            else:
+                t, (stream, _, n_py) = _timed(lambda: sm.load_and_preprocess_streamed(
+                    euroc, times, cfg, method, VOXEL, dev))
+                rec["streamed"].append(t)
+                if n_py:
+                    fail(f"phase 12: {n_py} PCDs went to the Python parser")
+        for name, a, b in zip(two._fields, stream, two):
+            if (a is None) != (b is None) or (b is not None and not torch.equal(a, b)):
+                fail(f"phase 12: streamed and two-phase {name} differ on the card")
+        del raw
+    line = ("load+preprocess of the stack (bit-equal on the card): "
+            + "; ".join(f"{k} {_spread(v)}" for k, v in rec.items()))
+    return line, stream
+
+
+def _host_resume(d, euroc, scans, cfg, tmp):
+    """match_consecutive at phase 4's shape, checkpointed, cut back to half
+    its groups and resumed: the uninterrupted transforms, bit for bit."""
+    prm = euroc.read_scanmatcher_parameters()
+    _, _, _, odo, _ = sm.prepare_experiment_data(euroc, prm["start_index"],
+                                                 prm["delta_time"])
+    args = (scans.points, scans.mask, scans.normals, sm.relative_odometry(odo),
+            cfg, prm["method"])
+    ck = os.path.join(tmp, "checkpoint.npz")
+    t_fused, (fused, _) = _timed(lambda: sm.match_consecutive(*args, progress=False))
+    t_ck, (full, _) = _timed(lambda: sm.match_consecutive(
+        *args, progress=False, checkpoint_path=ck, checkpoint_key=1))
+    saved = dict(np.load(ck))
+    groups = int(saved["batches_done"])
+    saved["batches_done"] = groups // 2
+    saved["transforms"][groups // 2 * cfg.batch_size:] = 0.0
+    np.savez(ck, **saved)
+    t_res, (resumed, st) = _timed(lambda: sm.match_consecutive(
+        *args, progress=False, checkpoint_path=ck, checkpoint_key=1))
+    if not (np.array_equal(full, fused) and np.array_equal(resumed, fused)):
+        fail("phase 12: checkpointed or resumed transforms differ from the "
+             "uninterrupted run")
+    skipped = int((st["iterations"] < 0).sum())
+    return (f"resume ({len(fused)} pairs, {groups} groups): checkpointed run "
+            f"and a run resumed at group {groups // 2} ({skipped} pairs read "
+            f"back) bit-equal to the uninterrupted one; seconds fused "
+            f"{t_fused:.4f}, checkpointed {t_ck:.4f}, resumed {t_res:.4f}")
+
+
+def _host_renders(d):
+    """Phase 8's ``cli graph`` renders, or the recorded ImportError."""
+    with open(f"{d}/robot0/viz/graphslam_profile.json") as f:
+        err = json.load(f)["uncertainty_error"]
+    if err is None:
+        sizes = {n: os.path.getsize(f"{d}/robot0/SLAM/{n}")
+                 for n in ("uncertainty.png", "gps_comparison.png")}
+        if min(sizes.values()) <= 1000:
+            fail(f"phase 12: stage 2's renders are empty: {sizes}")
+        return f"renders: phase 8's cli graph wrote {sizes} (bytes)"
+    if not err.startswith(("ImportError", "ModuleNotFoundError")):
+        fail(f"phase 12: stage 2's renders failed: {err}")
+    return f"renders: not written, matplotlib missing ({err})"
+
+
+def _cli_seconds(argv):
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        t, rc = _timed(lambda: cli.main(argv))
+    if rc != 0:
+        fail(f"phase 12: cli {' '.join(argv[:1])} returned non-zero")
+    return t, out.getvalue()
+
+
+def _bag_of(d, n_scans, bag):
+    """A ROS1 bag of the dataset's first ``n_scans`` scans, their odometry
+    and GPS, written by the port's ``write_bag``."""
+    euroc = EurocDataset(d)
+    times = euroc.read_csv("/robot0/lidar/data.csv")["#timestamp [ns]"][:n_scans]
+    odo = euroc.read_csv("/robot0/odom/data.csv")
+    gps = euroc.read_csv("/robot0/gps0/data.csv")
+    msgs = []
+    for k, t in enumerate(odo["#timestamp [ns]"]):
+        if t <= times[-1]:
+            msgs.append(("/odom", "nav_msgs/Odometry", int(t), rosbag.serialize_odometry(
+                int(t), [odo[c][k] for c in "xyz"],
+                [odo[c][k] for c in ("qx", "qy", "qz", "qw")])))
+    for k, t in enumerate(times):
+        msgs.append(("/points", "sensor_msgs/PointCloud2", int(t),
+                     rosbag.serialize_pointcloud2(int(t), read_pcd(euroc.scan_pcd_path(t)))))
+        msgs.append(("/fix", "sensor_msgs/NavSatFix", int(t), rosbag.serialize_navsatfix(
+            int(t), gps["latitude"][k], gps["longitude"][k], gps["altitude"][k])))
+    msgs.sort(key=lambda m: m[2])
+    rosbag.write_bag(bag, msgs, compression="bz2")
+    return times, len(msgs)
+
+
+def _host_commands(d, T_gt, tmp):
+    """cli view, convert, convert --mesh and diag on phase 4's dataset; cli
+    ingest of a bag of its first scans, then cli scanmatch of the tree."""
+    n = N_SCANS
+    out, secs = [], {}
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if have_mpl:
+        secs["view"], _ = _cli_seconds(["view", "-i", d])
+        viz = f"{d}/robot0/viz"
+        for name in ("trajectory.png", "trajectory_loop_closures.png", "map.ply", "map.pcd"):
+            if not os.path.getsize(f"{viz}/{name}"):
+                fail(f"phase 12: cli view wrote an empty {name}")
+        n_map = len(read_ply(f"{viz}/map.ply"))
+        if not (n_map > 0 and read_pcd(f"{viz}/map.pcd").shape == (n_map, 3)):
+            fail(f"phase 12: cli view's map.ply and map.pcd disagree ({n_map} points)")
+        secs["diag"], text = _cli_seconds(["diag", "-i", d])
+        report = json.loads(text)
+        if (report["timestamps"]["lidar"]["count"] != n
+                or report["solution_slam"]["poses"] != n
+                or report["delta_scanmatcher"]["steps"] != n - 1):
+            fail(f"phase 12: cli diag's counts are off: {report}")
+        out.append(f"view map {n_map} points, diag SLAM end-point error "
+                   f"{report['solution_slam']['end_point_error_m']:.4f} m")
+    else:
+        for cmd in ("view", "diag"):
+            try:
+                cli.main([cmd, "-i", d])
+            except ImportError:
+                continue
+            fail(f"phase 12: cli {cmd} ran without matplotlib")
+        out.append("view and diag raise ImportError (no matplotlib)")
+    secs["convert"], _ = _cli_seconds(["convert", "-i", d])
+    plys = os.listdir(f"{d}/robot0/lidar/dataply")
+    if len(plys) != n:
+        fail(f"phase 12: cli convert wrote {len(plys)} PLYs for {n} scans")
+    dm = os.path.join(tmp, "mesh")
+    os.makedirs(f"{dm}/robot0/lidar/data")
+    times = EurocDataset(d).read_csv("/robot0/lidar/data.csv")["#timestamp [ns]"][:MESH_SCANS]
+    for t in times:
+        shutil.copy(f"{d}/robot0/lidar/data/{t}.pcd", f"{dm}/robot0/lidar/data/")
+    with open(f"{dm}/robot0/lidar/data.csv", "w") as f:
+        f.write("#timestamp [ns]\n" + "".join(f"{t}\n" for t in times))
+    secs["convert --mesh"], _ = _cli_seconds(["convert", "-i", dm, "--mesh",
+                                              "--alpha", MESH_ALPHA])
+    faces = []
+    for t in times:
+        with open(f"{dm}/robot0/lidar/dataply/{t}.ply", "rb") as f:
+            head = f.read(400).decode("ascii", "ignore")
+        faces.append(int(head.split("element face ")[1].split()[0]))
+    if min(faces) <= 0:
+        fail(f"phase 12: cli convert --mesh wrote empty meshes: {faces}")
+    out.append(f"convert {len(plys)} PLYs, --mesh {MESH_SCANS} scans at alpha "
+               f"{MESH_ALPHA} m: {faces} faces")
+
+    bag, di = os.path.join(tmp, "scans.bag"), os.path.join(tmp, "ingested")
+    t_bag = time.perf_counter()
+    b_times, n_msgs = _bag_of(d, BAG_SCANS, bag)
+    t_bag = time.perf_counter() - t_bag
+    secs["ingest"], _ = _cli_seconds(["ingest", "-i", di, "--bag", bag])
+    if (sorted(os.listdir(f"{di}/robot0/lidar/data"))
+            != sorted(f"{t}.pcd" for t in b_times)):
+        fail("phase 12: cli ingest did not write one PCD per scan")
+    for t in b_times:
+        if (read_pcd(f"{di}/robot0/lidar/data/{t}.pcd").tobytes()
+                != read_pcd(f"{d}/robot0/lidar/data/{t}.pcd").tobytes()):
+            fail(f"phase 12: ingested scan {t} differs from the dataset's")
+    for name in ("scanmatcher_parameters.yaml", "slam_parameters.yaml"):
+        shutil.copy(f"{d}/robot0/{name}", f"{di}/robot0/")
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    secs["scanmatch (ingested)"], _ = _cli_seconds(
+        ["scanmatch", "-i", di, "--capacity", str(CAPACITY)])
+    if _cuda.launch_counts["nn_sweep"] <= 0 or _cuda.launch_counts["ball_moments"] <= 0:
+        fail("phase 12: cli scanmatch of the ingested tree did not launch K1 and K2")
+    _, T_ing = EurocDataset(di).read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
+    _, T_rel = EurocDataset(di).read_trajectory("/robot0/scanmatcher/scanmatcher_relative.csv")
+    _, T_rel4 = EurocDataset(d).read_trajectory("/robot0/scanmatcher/scanmatcher_relative.csv")
+    err = ate(T_ing, T_gt[:BAG_SCANS])["rmse"]
+    dpos, drot = _pose_err(T_rel, T_rel4[:BAG_SCANS - 1])
+    if len(T_ing) != BAG_SCANS or err >= VOXEL or dpos.max() > 1e-3 or drot.max() > 1e-3:
+        fail(f"phase 12: the ingested tree's stage 1: {len(T_ing)} poses, ATE "
+             f"{err} m, {dpos.max()} m / {drot.max()} rad from phase 4's pairs")
+    out.append(f"bag of {BAG_SCANS} scans ({n_msgs} messages, bz2, built in "
+               f"{t_bag:.3f} s) ingested byte-equal, its stage 1 ATE {err:.5f} m, "
+               f"{dpos.max():.3g} m / {drot.max():.3g} rad from phase 4's pairs")
+    return ("commands: " + "; ".join(out) + "; seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+
+
+def phase_host(d, T_gt, smi, dev, tmp):
+    """The host paths on phase 4's dataset: the parse alone, streamed
+    against two-phase load+preprocess, resume, stage 2's renders and the
+    remaining commands."""
+    euroc = EurocDataset(d)
+    times = euroc.read_csv("/robot0/scanmatcher/lidar_times.csv")["#timestamp [ns]"]
+    cfg = IcpConfig(capacity=CAPACITY)
+    paths = [euroc.scan_pcd_path(t) for t in times]
+    parse = _host_parse(paths, cfg.raw_capacity)
+    load, scans = _host_load(euroc, times, cfg, "icppointplane", dev)
+    resume = _host_resume(d, euroc, scans, cfg, tmp)
+    renders = _host_renders(d)
+    commands = _host_commands(d, T_gt, tmp)
+    print(f"phase 12 host paths ({N_SCANS} scans x {SCAN_POINTS} points, "
+          f"capacity {CAPACITY}, voxel {VOXEL}): {parse}; {load}; {resume}; "
+          f"{renders}; {commands}; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1372,6 +1660,7 @@ def main():
         stage2 = phase_stage2(d, T_gt, ate1, smi, dev)
         phase_planes(tmp, smi, dev)
         phase_fpfh(tmp, smi, dev)
+        phase_host(d, T_gt, smi, dev, tmp)
     phase_solvers(dev)
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1

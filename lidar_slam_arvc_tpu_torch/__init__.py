@@ -6,20 +6,24 @@ mirrors the JAX package module for module, so each counterpart is easy to
 find:
 
 geom          SE(3)/SO(3) algebra on tensors; float64 numpy host mirrors
-io            PCD files, EUROC CSV/YAML layer (numpy + csv, no pandas/yaml), UTM
+io            PCD files (native parser), EUROC CSV/YAML layer (numpy + csv, no
+              pandas/yaml), UTM, ROS1 bag ingest
 cloud         Cloud container, crop, compaction, voxel downsample, normals
-ops           3x3 eigensolver; the two CUDA kernels (NN sweep, ball moments)
+ops           3x3 eigensolver; the CUDA kernels (NN sweeps, ball moments)
 registration  batched point-to-plane / point-to-point ICP
 graph         pose graph: factors, dense LM and PCG solvers, marginals
 keyframes     keyframe store: preprocessed scans, batched registration
 loop          triangle-gated loop closing
 pipeline      stage-1 scan matcher, stage-2 graph SLAM, preprocessing, CLI
-utils         IcpConfig, ATE/RPE metrics, synthetic EUROC datasets
+viz           trajectory/uncertainty/GPS PNGs, global map, PLY meshes, diagnostics
+utils         IcpConfig, ATE/RPE metrics, synthetic EUROC datasets, profiling
 
-The package imports torch, numpy and the standard library only — never
-jax, pandas or PyYAML — so it runs on a machine that has none of them.
-Kernels build with nvcc at first use (``ops/_cuda.py``); a wrapper given a
-CPU tensor runs its kernel's plain PyTorch version instead.
+The package imports torch, numpy and the standard library — matplotlib
+and scipy only when a figure or a mesh is made, never jax, pandas or
+PyYAML — so it runs on a machine that has none of them.  Kernels build
+with nvcc at first use (``ops/_cuda.py``), the PCD parser with g++
+(``io/native.py``); a wrapper given a CPU tensor runs its kernel's plain
+PyTorch version instead.
 """
 
 __version__ = "0.1.0"

@@ -72,6 +72,15 @@ def rot_to_quat_np(R: np.ndarray) -> np.ndarray:
     return q
 
 
+def quat_to_yaw_np(q: np.ndarray) -> np.ndarray:
+    """Yaw (gamma of XYZ-mobile Euler) from wxyz quaternion(s)."""
+    R = quat_to_rot_np(q)
+    # gamma from the first Euler branch: arctan2(-R01, R00) for |R02|<1
+    s1 = np.sign(np.cos(np.arcsin(np.clip(R[..., 0, 2], -1.0, 1.0))))
+    s1 = np.where(s1 == 0, 1.0, s1)
+    return np.arctan2(-s1 * R[..., 0, 1], s1 * R[..., 0, 0])
+
+
 def transforms_from_pose_columns_np(xyz: np.ndarray, q_wxyz: np.ndarray) -> np.ndarray:
     xyz = np.asarray(xyz, dtype=np.float64)
     T = np.zeros(xyz.shape[:-1] + (4, 4), dtype=np.float64)

@@ -1,9 +1,10 @@
 """PCD point-cloud file reader/writer (PCL format v0.7).
 
 Counterpart of ``lidar_slam_arvc_tpu/io/pcd.py``: ``ascii``, ``binary``
-and ``binary_compressed`` (LZF) storage, numpy-vectorised parsing.  LZF
-payloads go through the pure-Python decompressor; the native batch loader
-is not part of the port yet.
+and ``binary_compressed`` (LZF) storage, numpy-vectorised parsing, LZF
+payloads through the pure-Python decompressor.  Stage 1 and the keyframe
+store decode with the native batch parser (``io/native.py``) and come
+here only for the files it rejects (ASCII storage, parse errors).
 """
 
 from __future__ import annotations

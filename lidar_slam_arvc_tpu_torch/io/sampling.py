@@ -1,8 +1,12 @@
-"""Time-gated sensor sampling (counterpart of ``lidar_slam_arvc_tpu/io/sampling.py``)."""
+"""Time- and motion-gated sensor sampling (counterpart of
+``lidar_slam_arvc_tpu/io/sampling.py``), over the port's column dicts."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from lidar_slam_arvc_tpu_torch.geom.hostmath import quat_to_yaw_np
+from lidar_slam_arvc_tpu_torch.io.euroc import TIME
 
 
 def sample_times(sensor_times: np.ndarray, start_index: int = 10,
@@ -23,3 +27,28 @@ def sample_times(sensor_times: np.ndarray, start_index: int = 10,
             t = current
     kept.append(sensor_times[-1])
     return np.unique(np.array(kept))
+
+
+def sample_odometry(odo: dict, deltaxy: float = 0.5, deltath: float = 0.2):
+    """Keep odometry rows spaced by > deltaxy metres or > deltath rad of yaw.
+
+    Row 0 is always kept; each kept row resets the gate (reference
+    tools/sampling.py:8-36).  ``odo``: a column dict with ``x, y, qw, qx,
+    qy, qz`` and the timestamp column.  Returns (times, the kept rows as a
+    column dict)."""
+    xy = np.stack([odo["x"], odo["y"]], axis=1).astype(np.float64)
+    q = np.stack([odo[k] for k in ("qw", "qx", "qy", "qz")],
+                 axis=1).astype(np.float64)
+    yaw = quat_to_yaw_np(q)
+    times = np.asarray(odo[TIME])
+
+    keep = [0]
+    ref_xy, ref_yaw = xy[0], yaw[0]
+    for i in range(len(times)):
+        dxy = np.linalg.norm(xy[i] - ref_xy)
+        dth = abs(yaw[i] - ref_yaw)
+        if dxy > deltaxy or dth > deltath:
+            keep.append(i)
+            ref_xy, ref_yaw = xy[i], yaw[i]
+    keep = np.array(keep, dtype=np.int64)
+    return times[keep], {k: np.asarray(v)[keep] for k, v in odo.items()}

@@ -2,8 +2,10 @@
 
 Counterpart of ``lidar_slam_arvc_tpu/keyframes/store.py`` (the reference's
 KeyFrameManager, keyframemanager/keyframemanager.py:8-184): every scan is
-loaded and preprocessed at once (``pipeline.scanmatcher.load_scans`` and
-``preprocess_all``; loop closing wants full resolution, voxel None), and
+loaded and preprocessed at once, through stage 1's streamed path
+(``pipeline.scanmatcher.load_and_preprocess_streamed``: the native PCD
+parser overlapped with preprocessing; loop closing wants full resolution,
+voxel None), and
 registration between any set of (i, j) pairs is one batched call over
 them under the store's method (reference keyframes/store.py:288-320):
 
@@ -93,15 +95,13 @@ class KeyframeStore:
         """Load every ``keyframe_sampling``-th scan and preprocess it on the
         store's device (reference keyframemanager.py:20-50, all at once)."""
         from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import (
-            load_scans, preprocess_all,
+            load_and_preprocess_streamed,
         )
         if keyframe_sampling > 1:
             self.scan_times = self.scan_times[::keyframe_sampling]
-        raw_pts, raw_mask = load_scans(EurocDataset(self.directory),
-                                       self.scan_times, self.cfg.raw_capacity)
-        scans, self.overflow = preprocess_all(
-            raw_pts, raw_mask, self.cfg, self.method, self.voxel_size,
-            self.device, seed=PLANE_SEED)
+        scans, self.overflow, _ = load_and_preprocess_streamed(
+            EurocDataset(self.directory), self.scan_times, self.cfg,
+            self.method, self.voxel_size, self.device, seed=PLANE_SEED)
         self.points, self.mask, self.normals = scans.points, scans.mask, scans.normals
         self.ground_mask, self.nonground_mask = scans.ground_mask, scans.nonground_mask
         self.n_loaded_locally = len(self.scan_times)

@@ -31,6 +31,8 @@ import time
 
 import torch
 
+from lidar_slam_arvc_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -102,6 +104,7 @@ def _build() -> str:
     so = os.path.join(BUILD_DIR, f"libslam_kernels_{h.hexdigest()[:16]}.so")
     if os.path.exists(so):
         build_info.update(path=so, seconds=0.0, cached=True, log="")
+        profiling.record_build("slam_kernels", 0.0, cached=True)
         return so
     t0 = time.time()
     nvcc = _nvcc()
@@ -125,6 +128,7 @@ def _build() -> str:
     with open(so + ".log", "w") as f:
         f.write(log)
     build_info.update(path=so, seconds=time.time() - t0, cached=False, log=log)
+    profiling.record_build("slam_kernels", build_info["seconds"], cached=False)
     return so
 
 

@@ -7,16 +7,20 @@ GPS unary factors in the GPS frame; optimise every ``skip_optimization``
 poses; try triangle loop closures every ``skip_loop_closing`` poses and on
 the last two; optimise once more with 30 iterations; compute marginals;
 write ``robot0/SLAM/solution_graphslam.csv``,
-``robot0/SLAM/loop_closures.csv`` and ``robot0/viz/graphslam_profile.json``.
+``robot0/SLAM/loop_closures.csv``, the two renders
+``robot0/SLAM/uncertainty.png`` (1-sigma position ellipses from the
+marginals) and ``gps_comparison.png`` (with GPS), and
+``robot0/viz/graphslam_profile.json``.
 
 The loop-closure store is every scan at full resolution (voxel None,
 normals by K2, the ground split under icp2planes and fpfh), or stage 1's
 own tensors when ``run_scanmatcher`` made them with the same
 configuration and plane seed; it registers candidates under the slam
-parameters' ``method``, its ICPs over K1.  The two PNGs of
-the reference (uncertainty ellipses, GPS comparison) are not rendered yet:
-the marginals they would plot are still computed and timed, and the
-profile's ``uncertainty_error`` says so.
+parameters' ``method``, its ICPs over K1.  The renders need matplotlib:
+without it (``ImportError``) or when a file cannot be written
+(``OSError``) the stage still writes its CSVs and records the error in the
+profile's ``uncertainty_error``, as the reference does; an error in the
+marginals propagates.
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ from lidar_slam_arvc_tpu_torch.loop import LoopCloser
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.pipeline.preprocess import PLANE_SEED
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
-
-UNCERTAINTY_NOT_PORTED = ("not ported: the uncertainty.png and "
-                          "gps_comparison.png renders wait for the viz slice")
+from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter
+from lidar_slam_arvc_tpu_torch.viz.plots import (
+    plot_gps_comparison, plot_trajectory_with_uncertainty,
+)
 
 
 def prepare_experiment_data(euroc: EurocDataset):
@@ -109,6 +114,13 @@ def run_graphslam(directory: str, cfg: IcpConfig | None = None,
     ``run_scanmatcher(return_preprocessed=True)``; the loop-closure store
     reuses its tensors when they match this run's configuration, and loads
     every PCD again otherwise."""
+    builds = BuildCounter()
+    with builds.scope():
+        return _run_graphslam(directory, cfg, progress, preprocessed, device,
+                              builds)
+
+
+def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
     device = _cuda.torch_device(device, "run_graphslam")
     euroc = EurocDataset(directory)
     params = euroc.read_slam_parameters()
@@ -224,16 +236,30 @@ def run_graphslam(directory: str, cfg: IcpConfig | None = None,
     euroc.save_loop_closures_as_csv(loop_closures,
                                     "/robot0/SLAM/loop_closures.csv")
 
-    # the marginals the uncertainty plot would draw (the plot itself is not
-    # ported): every pose by dense chunked back-substitution up to the
-    # dense solver's capacity, the skip-sampled ones by PCG beyond
+    # the marginals the uncertainty plot draws: every pose by dense
+    # chunked back-substitution up to the dense solver's capacity, only the
+    # skip-sampled ones (the ellipses drawn) by PCG beyond
     t_marg = time.time()
+    skip = max(n // 64, 1)
     if graph.max_poses <= 256:
-        graph.marginal_covariances()
+        covs = graph.marginal_covariances()
     else:
-        graph.marginal_covariances(
-            indices=np.arange(0, graph.n_poses, max(n // 64, 1)))
+        idx = np.arange(0, graph.n_poses, skip)
+        covs = np.zeros((graph.n_poses, 6, 6))
+        covs[idx] = graph.marginal_covariances(indices=idx)
     marginals_seconds = time.time() - t_marg
+    uncertainty_error = None
+    try:
+        plot_trajectory_with_uncertainty(
+            graph.current_estimate, covs,
+            f"{directory}/robot0/SLAM/uncertainty.png", skip=skip)
+        if gps is not None:
+            plot_gps_comparison(graph.current_estimate, gps, corr_indexes,
+                                f"{directory}/robot0/SLAM/gps_comparison.png")
+    except (ImportError, OSError) as exc:   # the renders only
+        uncertainty_error = f"{type(exc).__name__}: {exc}"
+        if progress:
+            print(f"uncertainty plot skipped: {uncertainty_error}")
     n_loops = sum(len(g) for g in loop_closures if g)
     seconds = time.time() - t0
 
@@ -263,7 +289,7 @@ def run_graphslam(directory: str, cfg: IcpConfig | None = None,
         "gps_factors": int(len(corr_indexes)),
         "solver": graph.auto_solver(),
         "method": method,
-        "uncertainty_error": UNCERTAINTY_NOT_PORTED,
+        "uncertainty_error": uncertainty_error,
         "mesh_devices": 1,
         "process_count": 1,
         "store_scans_loaded_locally": int(store_loaded),
@@ -273,6 +299,7 @@ def run_graphslam(directory: str, cfg: IcpConfig | None = None,
         "solver_stats": dict(graph.stats),
         "kernel_launches": {k: v - launches0[k]
                             for k, v in _cuda.launch_counts.items()},
+        **builds.report(),
     }
     os.makedirs(f"{directory}/robot0/viz", exist_ok=True)
     with open(f"{directory}/robot0/viz/graphslam_profile.json", "w") as f:

@@ -7,21 +7,27 @@ pair's ICP with the relative odometry transform, fold the refined relative
 transforms into a global trajectory in float64, and write the three
 scanmatcher CSVs and ``robot0/viz/scanmatcher_profile.json``.
 
-Path: PCD load (thread pool) -> per batch of ``cfg.batch_size`` scans on
-the device: crop, voxel downsample (or compaction), normals (K2), and the
-ground split under icp2planes/fpfh -> registration over groups of
-``cfg.batch_size`` consecutive pairs: ICP (``match_all``; K1 once per
-iteration per group, or the search ``nn_impl`` names), the two-plane ICP
-(one ICP batch of twice the pairs) or FPFH + RANSAC + ICP (the
-descriptors computed once per scan) -> divergence gate -> fold -> CSVs.
+Path: streamed load (``load_and_preprocess_streamed``: one IO thread
+decodes chunk k+1 with the native PCD parser, ``io/native.py``, into
+pinned host memory while the device preprocesses chunk k) -> per batch of
+``cfg.batch_size`` scans on the device: crop, voxel downsample (or
+compaction), normals (K2), and the ground split under icp2planes/fpfh ->
+registration over groups of ``cfg.batch_size`` consecutive pairs: ICP
+(``match_all``; K1 once per iteration per group, or the search ``nn_impl``
+names), the two-plane ICP (one ICP batch of twice the pairs) or FPFH +
+RANSAC + ICP (the descriptors computed once per scan) -> divergence gate
+-> fold -> CSVs.  With ``IcpConfig.checkpoint_batches > 0`` each group's
+result comes to the host after the group and ``robot0/scanmatcher/
+checkpoint.npz`` is saved, in the reference's format, so that an
+interrupted stage resumes where it stopped (in either package).
 
 Draws (icp2planes, fpfh): scan i's ground plane from
-``seeded_generator(seed, i)``, whatever the batch size; the fpfh matcher's
-group b of pairs from ``torch.Generator().manual_seed(b)``, as the
-reference keys its group b with ``PRNGKey(b)``.
+``seeded_generator(seed, i)``, i the scan's index in the whole sequence,
+whatever the batch or chunk; the fpfh matcher's group b of pairs from
+``torch.Generator().manual_seed(b)``, as the reference keys its group b
+with ``PRNGKey(b)``, resumed or not.
 
-Not ported yet (they raise): mid-stage checkpointing, device meshes and
-multi-host runs, and the streamed load.
+Not ported yet (they raise): device meshes and multi-host runs (M8).
 """
 
 from __future__ import annotations
@@ -30,12 +36,14 @@ import concurrent.futures
 import json
 import os
 import time
+import zipfile
 
 import numpy as np
 import torch
 
 from lidar_slam_arvc_tpu_torch.cloud.cloud import pad_numpy
 from lidar_slam_arvc_tpu_torch.geom.hostmath import transforms_from_pose_columns_np
+from lidar_slam_arvc_tpu_torch.io import native
 from lidar_slam_arvc_tpu_torch.io.euroc import TIME, EurocDataset
 from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd
 from lidar_slam_arvc_tpu_torch.io.sampling import sample_times
@@ -49,6 +57,7 @@ from lidar_slam_arvc_tpu_torch.registration.global_reg import (
 )
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch, two_planes_pairs
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
+from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter
 
 
 def prepare_experiment_data(euroc: EurocDataset, start_index: int,
@@ -79,42 +88,59 @@ def relative_odometry(odo: dict) -> np.ndarray:
     return np.einsum("nij,njk->nik", np.linalg.inv(T[:-1]), T[1:])
 
 
-def load_scans(euroc: EurocDataset, scan_times, raw_capacity: int,
-               max_workers: int = 4):
-    """All PCDs as a padded (N, raw_capacity, 3) f32 stack + (N, raw) mask."""
-    paths = [euroc.scan_pcd_path(t) for t in scan_times]
-    pts = np.zeros((len(paths), raw_capacity, 3), dtype=np.float32)
-    mask = np.zeros((len(paths), raw_capacity), dtype=bool)
+def _load_paths(paths, raw_capacity: int, out: np.ndarray | None = None,
+                max_workers: int = 4):
+    """Decode PCDs into a padded (n, raw_capacity, 3) f32 stack.
 
-    def load_one(i):
-        return i, pad_numpy(read_pcd(paths[i]), raw_capacity)
+    The native batch parser reads binary and binary_compressed files (a
+    file's first ``raw_capacity`` points); a file it rejects (ASCII, a parse
+    error) is parsed in Python and padded with ``pad_numpy``, as in the
+    reference (scanmatcher.py:75-104).  ``out``: the array to decode into.
+    Returns (points, counts (n,) int64, number of files parsed in Python)."""
+    pts, counts = native.read_pcd_batch(paths, raw_capacity, out=out)
+    rejected = np.nonzero(counts < 0)[0]
+    if len(rejected):
+        def load_one(i):
+            return i, pad_numpy(read_pcd(paths[i]), raw_capacity)
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
-        for i, (p, m) in ex.map(load_one, range(len(paths))):
-            pts[i] = p
-            mask[i] = m
-    return pts, mask
+        with concurrent.futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            for i, (p, m) in ex.map(load_one, rejected):
+                pts[i] = p
+                counts[i] = int(m.sum())
+    return pts, counts, len(rejected)
 
 
-def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
-                   method: str, voxel_size, device, seed: int = PLANE_SEED):
-    """Preprocess every scan on ``device`` in batches of cfg.batch_size.
+def load_scans(euroc: EurocDataset, scan_times, raw_capacity: int):
+    """All PCDs as a padded (N, raw_capacity, 3) f32 stack + (N, raw) mask
+    (the native batch parser; rejected files in Python)."""
+    pts, counts, _ = _load_paths([euroc.scan_pcd_path(t) for t in scan_times],
+                                 raw_capacity)
+    return pts, np.arange(raw_capacity)[None, :] < counts[:, None]
 
-    Returns the whole stack as ``PreprocessedScans`` of device tensors and
-    the host (N,) count of voxels dropped by the capacity per scan.  Scan
-    i's ground plane draws from ``seeded_generator(seed, i)``."""
-    n = raw_pts.shape[0]
+
+def _preprocess_into(outs: list, pts, mask, first: int, cfg: IcpConfig,
+                     method: str, voxel_size, seed: int) -> None:
+    """Preprocess device stacks ``pts``/``mask`` of scans ``first``,
+    ``first`` + 1, ... in batches of cfg.batch_size, appending each batch's
+    ``PreprocessedScans`` to ``outs``.  Scan i draws its ground plane from
+    ``seeded_generator(seed, i)``."""
     B = cfg.batch_size
-    outs = []
+    n = pts.shape[0]
     for b0 in range(0, n, B):
-        pts = torch.from_numpy(raw_pts[b0:b0 + B]).to(device)
-        msk = torch.from_numpy(raw_mask[b0:b0 + B]).to(device)
-        gens = ([seeded_generator(seed, i) for i in range(b0, b0 + len(pts))]
+        gens = ([seeded_generator(seed, first + i)
+                 for i in range(b0, min(b0 + B, n))]
                 if method in SPLIT_METHODS else None)
-        outs.append(preprocess_batch(pts, msk, cfg, method, voxel_size, gens))
+        outs.append(preprocess_batch(pts[b0:b0 + B], mask[b0:b0 + B], cfg,
+                                     method, voxel_size, gens))
+
+
+def _assemble(outs: list, cfg: IcpConfig):
+    """The whole stack from its batches, and the host (N,) count of voxels
+    dropped by the capacity per scan (the one host read of the stage)."""
     scans = PreprocessedScans(*(
         None if outs[0][k] is None else torch.cat([o[k] for o in outs])
         for k in range(len(outs[0]))))
+    n = scans.points.shape[0]
     n_vox = scans.n_voxels.cpu().numpy()
     overflow = np.maximum(n_vox - cfg.capacity, 0)
     if overflow.any():
@@ -124,6 +150,74 @@ def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
               f"{int(n_vox.max())}, {int(overflow.sum())} voxels dropped) — "
               f"raise IcpConfig.capacity or coarsen voxel_size")
     return scans, overflow
+
+
+def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
+                   method: str, voxel_size, device, seed: int = PLANE_SEED):
+    """Preprocess every scan of a loaded stack on ``device`` in batches of
+    cfg.batch_size (the two-phase path: ``load_scans`` first).
+
+    Returns the whole stack as ``PreprocessedScans`` of device tensors and
+    the host (N,) count of voxels dropped by the capacity per scan."""
+    outs = []
+    B = cfg.batch_size
+    for b0 in range(0, raw_pts.shape[0], B):
+        _preprocess_into(outs, torch.from_numpy(raw_pts[b0:b0 + B]).to(device),
+                         torch.from_numpy(raw_mask[b0:b0 + B]).to(device), b0,
+                         cfg, method, voxel_size, seed)
+    return _assemble(outs, cfg)
+
+
+def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
+                                 cfg: IcpConfig, method: str, voxel_size,
+                                 device, seed: int = PLANE_SEED,
+                                 chunk_scans: int | None = None):
+    """Chunked PCD loading pipelined with device preprocessing (reference
+    scanmatcher.py:128-170).
+
+    Scans stream in chunks of ``chunk_scans`` (default ``max(8 B, 32)``,
+    rounded up to a multiple of B) with one chunk of lookahead: one IO
+    thread decodes chunk k+1 with the native parser, which releases the
+    interpreter lock, while this thread dispatches chunk k's preprocessing.
+    On a card a chunk is decoded into pinned host memory and copied with
+    ``non_blocking``, so the copy does not hold the thread either.  The
+    batches, the draws and so the output are those of ``load_scans`` +
+    ``preprocess_all``.  Returns (``PreprocessedScans``, overflow (N,),
+    number of files parsed in Python)."""
+    device = torch.device(device)
+    B = cfg.batch_size
+    if chunk_scans is None:
+        chunk_scans = max(8 * B, 32)
+    chunk_scans = -(-chunk_scans // B) * B
+    paths = [euroc.scan_pcd_path(t) for t in scan_times]
+    raw = cfg.raw_capacity
+    pinned = device.type == "cuda"
+
+    def load(lo):
+        part = paths[lo:lo + chunk_scans]
+        buf = torch.empty((len(part), raw, 3), dtype=torch.float32,
+                          pin_memory=pinned)
+        _, counts, n_python = _load_paths(part, raw, out=buf.numpy())
+        # pinned as well: a pageable copy would wait for the device
+        cnt = torch.empty(len(part), dtype=torch.int64, pin_memory=pinned)
+        cnt.numpy()[:] = counts
+        return buf, cnt, n_python
+
+    outs = []
+    n_python = 0
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(load, 0)
+        for lo in range(0, len(paths), chunk_scans):
+            buf, counts, k = fut.result()
+            if lo + chunk_scans < len(paths):
+                fut = ex.submit(load, lo + chunk_scans)
+            n_python += k
+            pts = buf.to(device, non_blocking=True)
+            mask = (torch.arange(raw, device=device)
+                    < counts.to(device, non_blocking=True)[:, None])
+            _preprocess_into(outs, pts, mask, lo, cfg, method, voxel_size, seed)
+    scans, overflow = _assemble(outs, cfg)
+    return scans, overflow, n_python
 
 
 def _by_groups(n_pairs: int, batch: int, register):
@@ -138,6 +232,16 @@ def _by_groups(n_pairs: int, batch: int, register):
                  ("transform", "fitness", "iterations", "final_delta"))
 
 
+def _icp_register(points, mask, normals, idx_src, idx_tgt, seeds,
+                  params: ICPParams, method: str):
+    """``register(g, sl)``: the ICP of the listed pairs ``sl``."""
+    def register(_, sl):
+        si, ti = idx_src[sl], idx_tgt[sl]
+        return icp_batch(points[si], mask[si], points[ti], mask[ti],
+                         normals[ti], seeds[sl], params, method)
+    return register
+
+
 def match_all(points, mask, normals, idx_src, idx_tgt, seeds,
               params: ICPParams, method: str, batch: int):
     """ICP of every listed scan pair, in groups of ``batch``.
@@ -148,11 +252,8 @@ def match_all(points, mask, normals, idx_src, idx_tgt, seeds,
     multiple of ``batch``.  ``params.nn_impl`` selects the correspondence
     search.  Returns device tensors (transforms (P, 4, 4), fitness,
     iterations, final_delta), each over the P pairs."""
-    def register(_, sl):
-        si, ti = idx_src[sl], idx_tgt[sl]
-        return icp_batch(points[si], mask[si], points[ti], mask[ti],
-                         normals[ti], seeds[sl], params, method)
-    return _by_groups(len(idx_src), batch, register)
+    return _by_groups(len(idx_src), batch, _icp_register(
+        points, mask, normals, idx_src, idx_tgt, seeds, params, method))
 
 
 def consecutive_pairs(n_scans: int, batch: int, T_seeds: np.ndarray):
@@ -180,15 +281,90 @@ def fell_back(fitness: np.ndarray, final_delta: np.ndarray,
     return bad
 
 
+def read_checkpoint(path: str, key: int, n_pairs: int, batch: int):
+    """(groups done, (n_pairs, 4, 4) float64 transforms) from a checkpoint
+    of the same key, pair count and batch size, or (0, None) when there is
+    none or it is unreadable (reference scanmatcher.py:414-430)."""
+    if not os.path.exists(path):
+        return 0, None
+    try:
+        with np.load(path) as ck:
+            if (int(ck["key"]) != int(key) or int(ck["n_pairs"]) != n_pairs
+                    or int(ck["batch_size"]) != batch):
+                return 0, None
+            done = int(ck["batches_done"])
+            transforms = np.asarray(ck["transforms"], dtype=np.float64)
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return 0, None
+    if transforms.shape != (n_pairs, 4, 4) or done < 0:
+        return 0, None
+    return done, transforms
+
+
+def write_checkpoint(path: str, key: int, n_pairs: int, batch: int,
+                     batches_done: int, transforms: np.ndarray) -> None:
+    """The reference's checkpoint (fields ``key, n_pairs, batch_size,
+    batches_done, transforms``), written to a temporary file and renamed
+    over ``path``, so that a crash leaves the previous one whole."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, key=key, n_pairs=n_pairs, batch_size=batch,
+                 batches_done=batches_done, transforms=transforms)
+    os.replace(tmp, path)
+
+
+def _match_checkpointed(register, n_groups: int, n_pairs: int, B: int,
+                        seeds: np.ndarray, cfg: IcpConfig, params: ICPParams,
+                        path: str, key: int, progress: bool):
+    """Group by group, each group's result on the host after it and the
+    checkpoint saved; groups a matching checkpoint holds are not run again.
+    Their fitness, iterations and final_delta are unknown (NaN, -1, NaN)
+    and they count as not fallen back."""
+    T_out = np.zeros((n_pairs, 4, 4))
+    fit = np.full(n_pairs, np.nan, dtype=np.float32)
+    iters = np.full(n_pairs, -1, dtype=np.int32)
+    delta = np.full(n_pairs, np.nan, dtype=np.float32)
+    bad = np.zeros(n_pairs, dtype=bool)
+    start, saved = read_checkpoint(path, key, n_pairs, B)
+    start = min(start, n_groups)
+    if start:
+        T_out[:min(start * B, n_pairs)] = saved[:start * B]
+        if progress:
+            print(f"resuming scanmatch from group {start} "
+                  f"({min(start * B, n_pairs)}/{n_pairs} pairs)")
+    for g in range(start, n_groups):
+        lo, hi = g * B, min((g + 1) * B, n_pairs)
+        res = register(g, slice(g * B, (g + 1) * B))
+        k = hi - lo
+        T = res.transform.cpu().numpy().astype(np.float64)[:k]
+        fit[lo:hi] = res.fitness.cpu().numpy()[:k]
+        iters[lo:hi] = res.iterations.cpu().numpy()[:k]
+        delta[lo:hi] = res.final_delta.cpu().numpy()[:k]
+        bad[lo:hi] = fell_back(fit[lo:hi], delta[lo:hi], cfg.min_fitness, params)
+        T[bad[lo:hi]] = seeds[lo:hi][bad[lo:hi]].astype(np.float64)
+        T_out[lo:hi] = T
+        write_checkpoint(path, key, n_pairs, B, g + 1, T_out)
+    return T_out, fit, iters, delta, bad
+
+
 def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                       cfg: IcpConfig, method: str, progress: bool = True,
-                      ground_mask=None, nonground_mask=None):
+                      ground_mask=None, nonground_mask=None,
+                      checkpoint_path: str | None = None,
+                      checkpoint_key: int | None = None):
     """Batched registration of consecutive pairs under ``method``
     (icp2planes and fpfh need the scans' ground/non-ground masks).
 
     Source = scan i+1, target = scan i.  Returns the (N-1,4,4) float64
     refined T_i_i+1 and per-pair host arrays (fitness, iterations,
     final_delta, fell_back) for the profile.
+
+    With ``checkpoint_path`` every group's result comes to the host after
+    the group and the checkpoint is saved there; a checkpoint of the same
+    ``checkpoint_key`` (derived from the scan times), pair count and batch
+    size resumes after its last group, with the transforms it holds.
+    Without, every group runs before one read of the results.  Both give
+    the same transforms.
     """
     n_pairs = points.shape[0] - 1
     B = cfg.batch_size
@@ -203,25 +379,32 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
     if method in SPLIT_METHODS and (ground_mask is None or nonground_mask is None):
         raise ValueError(f"method {method!r} needs the ground/non-ground masks")
     if method == "icp2planes":
-        T_all, fit, iters, delta = _by_groups(len(si), B, lambda _, sl: two_planes_pairs(
-            points, normals, ground_mask, nonground_mask, si[sl], ti[sl], sd[sl],
-            params))
+        def register(_, sl):
+            return two_planes_pairs(points, normals, ground_mask, nonground_mask,
+                                    si[sl], ti[sl], sd[sl], params)
     elif method == "fpfh":
         gp = GlobalRegParams(fpfh_radius=cfg.fpfh_radius, icp=params)
         feats = scan_features(points, normals, nonground_mask, cfg.fpfh_radius, B)
-        T_all, fit, iters, delta = _by_groups(len(si), B, lambda g, sl: fpfh_pairs(
-            points, mask, normals, nonground_mask, feats, si[sl], ti[sl], gp,
-            torch.Generator().manual_seed(g)))
+
+        def register(g, sl):
+            return fpfh_pairs(points, mask, normals, nonground_mask, feats,
+                              si[sl], ti[sl], gp, torch.Generator().manual_seed(g))
     else:
-        T_all, fit, iters, delta = match_all(points, mask, normals, si, ti, sd,
-                                             params, icp_method, B)
-    T_all = T_all.cpu().numpy().astype(np.float64)[:n_pairs]
-    fit = fit.cpu().numpy()[:n_pairs]
-    iters = iters.cpu().numpy()[:n_pairs]
-    delta = delta.cpu().numpy()[:n_pairs]
-    bad = fell_back(fit, delta, cfg.min_fitness, params)
-    if bad.any():
-        T_all[bad] = seeds[:n_pairs][bad].astype(np.float64)
+        register = _icp_register(points, mask, normals, si, ti, sd, params,
+                                 icp_method)
+    if checkpoint_path is not None:
+        T_all, fit, iters, delta, bad = _match_checkpointed(
+            register, len(si) // B, n_pairs, B, seeds, cfg, params,
+            checkpoint_path, checkpoint_key, progress)
+    else:
+        T_all, fit, iters, delta = _by_groups(len(si), B, register)
+        T_all = T_all.cpu().numpy().astype(np.float64)[:n_pairs]
+        fit = fit.cpu().numpy()[:n_pairs]
+        iters = iters.cpu().numpy()[:n_pairs]
+        delta = delta.cpu().numpy()[:n_pairs]
+        bad = fell_back(fit, delta, cfg.min_fitness, params)
+        if bad.any():
+            T_all[bad] = seeds[:n_pairs][bad].astype(np.float64)
     if progress:
         print(f"scanmatch pairs {n_pairs}/{n_pairs} (groups of {B} on {dev})")
     return T_all, {"fitness": fit, "iterations": iters,
@@ -234,9 +417,6 @@ def _sync(device) -> None:
 
 
 def _check_supported(cfg: IcpConfig, method: str) -> None:
-    if cfg.checkpoint_batches > 0:
-        raise NotImplementedError("mid-stage checkpointing is not ported yet "
-                                  "(ROADMAP Queue 1, checkpoint/resume)")
     if cfg.mesh_devices != 1 or cfg.shard_scans:
         raise NotImplementedError("device meshes are not ported yet "
                                   "(ROADMAP M8)")
@@ -257,7 +437,19 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
     returns the preprocessed scan tensors under ``"preprocessed"``, with
     the seed and every configuration field the preprocessing read, so that
     stage 2 reuses them only when its store would make the same clouds and
-    masks (``pipeline.graphslam.run_graphslam``)."""
+    masks (``pipeline.graphslam.run_graphslam``).
+
+    With ``cfg.checkpoint_batches > 0`` the registration saves
+    ``robot0/scanmatcher/checkpoint.npz`` after every group, resumes from
+    a matching one, and removes it when the stage completes."""
+    builds = BuildCounter()
+    with builds.scope():
+        return _run_scanmatcher(directory, cfg, progress, device,
+                                return_preprocessed, seed, builds)
+
+
+def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
+                     seed, builds):
     device = _cuda.torch_device(device, "run_scanmatcher")
     euroc = EurocDataset(directory)
     sm_params = euroc.read_scanmatcher_parameters()
@@ -276,20 +468,28 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
     launches0 = dict(_cuda.launch_counts)
 
     t_load = time.time()
-    raw_pts, raw_mask = load_scans(euroc, scan_times, cfg.raw_capacity)
-    scans, overflow = preprocess_all(raw_pts, raw_mask, cfg, method,
-                                     voxel_size, device, seed=seed)
+    scans, overflow, n_python = load_and_preprocess_streamed(
+        euroc, scan_times, cfg, method, voxel_size, device, seed=seed)
     _sync(device)
     preprocess_seconds = time.time() - t_load
     if progress:
         print(f"loaded+preprocessed {n} scans in {preprocess_seconds:.2f}s")
 
+    ck_path = ck_key = None
+    if cfg.checkpoint_batches > 0:
+        os.makedirs(f"{directory}/robot0/scanmatcher", exist_ok=True)
+        ck_path = f"{directory}/robot0/scanmatcher/checkpoint.npz"
+        ck_key = int(np.int64(np.sum(scan_times)) & 0x7FFFFFFF)
     t_icp = time.time()
     rel_sm, stats = match_consecutive(
         scans.points, scans.mask, scans.normals, rel_odo, cfg, method,
         progress=progress, ground_mask=scans.ground_mask,
-        nonground_mask=scans.nonground_mask)
+        nonground_mask=scans.nonground_mask, checkpoint_path=ck_path,
+        checkpoint_key=ck_key)
     icp_seconds = time.time() - t_icp
+    if ck_path is not None:
+        # stage complete: the mid-stage checkpoint goes
+        os.remove(ck_path)
 
     # fold to global in float64 on the host
     T_global = np.empty((len(rel_sm) + 1, 4, 4))
@@ -298,6 +498,7 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
         T_global[i + 1] = T_global[i] @ Tij
 
     iters = stats["iterations"]
+    iters = iters[iters >= 0]          # pairs resumed from a checkpoint: -1
     profile = {
         "load_preprocess_seconds": round(preprocess_seconds, 4),
         "icp_seconds": round(icp_seconds, 4),
@@ -311,8 +512,11 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
         "icp_iterations_mean": float(iters.mean()) if len(iters) else 0.0,
         "icp_iterations_max": int(iters.max()) if len(iters) else 0,
         "pairs_fallback_to_seed": int(stats["fell_back"].sum()),
+        "pairs_resumed_from_checkpoint": int(len(rel_sm) - len(iters)),
+        "pcd_files_python_parsed": int(n_python),
         "kernel_launches": {k: v - launches0[k]
                             for k, v in _cuda.launch_counts.items()},
+        **builds.report(),
     }
     euroc.save_sensor_times_as_csv(scan_times,
                                    "/robot0/scanmatcher/lidar_times.csv")

@@ -3,9 +3,10 @@
 Counterpart of ``lidar_slam_arvc_tpu/utils/config.py``: the same fields
 and defaults, so ``IcpConfig(**dataclasses.asdict(jax_cfg))`` converts the
 reference's settings.  ``from_yaml`` is not ported (it needs PyYAML's
-nested mappings).  ``checkpoint_batches``, ``mesh_devices`` and
-``shard_scans`` are carried for that conversion; the port's scan matcher
-raises if they ask for checkpointing or a mesh.
+nested mappings).  ``checkpoint_batches > 0`` turns on stage 1's
+mid-stage checkpoint, as in the reference.  ``mesh_devices`` and
+``shard_scans`` are carried for the conversion; the port raises if they
+ask for a mesh (M8).
 """
 
 from __future__ import annotations

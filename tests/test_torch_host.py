@@ -39,7 +39,9 @@ def _random_transforms(rng, n):
 
 def test_port_imports_no_jax_pandas_yaml():
     """Importing every module of the port loads none of jax, pandas, yaml
-    or the JAX package (checked in a fresh interpreter)."""
+    or the JAX package, nor matplotlib or scipy, which the port imports
+    only when it draws a figure or makes a mesh (checked in a fresh
+    interpreter)."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import lidar_slam_arvc_tpu_torch as p\n"
@@ -47,8 +49,24 @@ def test_port_imports_no_jax_pandas_yaml():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'pandas', 'yaml', 'lidar_slam_arvc_tpu'))\n"
+        "             ('jax', 'jaxlib', 'pandas', 'yaml', 'lidar_slam_arvc_tpu',\n"
+        "              'matplotlib', 'scipy'))\n"
         "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("module", [
+    "lidar_slam_arvc_tpu_torch.viz", "lidar_slam_arvc_tpu_torch.io.rosbag",
+    "lidar_slam_arvc_tpu_torch.pipeline.cli"])
+def test_host_modules_import_no_plotting_or_scipy(module):
+    """The viz package, the bag reader and the CLI alone, in a fresh
+    interpreter: no matplotlib, scipy, jax, pandas or yaml at import."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "      ('matplotlib', 'scipy', 'jax', 'pandas', 'yaml')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -295,8 +295,7 @@ def test_scanmatcher_config_conversion_and_guards(dataset):
     d, _ = dataset
     cfg = IcpConfig(**dataclasses.asdict(IcpConfigRef(capacity=CAP)))
     assert cfg == IcpConfig(capacity=CAP)
-    for bad in ({"checkpoint_batches": 1}, {"mesh_devices": 2},
-                {"shard_scans": True}):
+    for bad in ({"mesh_devices": 2}, {"shard_scans": True}):
         with pytest.raises(NotImplementedError):
             run_scanmatcher(d, cfg=IcpConfig(**bad), device="cpu")
     if not torch.cuda.is_available():

@@ -20,6 +20,7 @@ by millimetres.  Tolerances:
 
 import copy
 import json
+import os
 import shutil
 
 import numpy as np
@@ -133,7 +134,10 @@ def test_graphslam_cli_matches_reference(stage1, tmp_path, reference_kernels):
             "store_reused_stage1", "mesh_devices", "process_count")
     assert {k: prof[k] for k in same} == {k: prof_ref[k] for k in same}
     assert set(prof_ref) - set(prof) == {"programs_compiled", "compile_seconds"}
-    assert prof["uncertainty_error"].startswith("not ported")
+    assert prof["uncertainty_error"] is None and prof_ref["uncertainty_error"] is None
+    for root in (d_port, d_ref):
+        for name in ("uncertainty.png", "gps_comparison.png"):
+            assert os.path.getsize(root + slam + name) > 1000, (root, name)
     # the port's ICP batch holds the real pairs; the reference pads to >= 8
     assert 0 < prof["loop_icp_pairs"] < prof_ref["loop_icp_pairs"]
     assert prof["kernel_launches"]["nn_sweep"] == 0   # plain versions on the CPU
