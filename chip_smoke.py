@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through twelve phases,
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through thirteen phases,
 one line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -116,7 +116,27 @@ one line each, and exits non-zero on any failure:
    (PCDs byte-equal to the dataset's), then ``cli scanmatch`` of the
    ingested tree on the card (K1 and K2 launched, ATE < 0.2 m, within 1e-3
    m / rad of phase 4's pairs); the seconds of each.
-13. the last line: {"ok": true, "device": {...}}.
+13. multi-device (run before phase 9): 2 ranks spawned on the one card
+   (both on cuda:0, so gloo, printed), at full width: (a)
+   ``sharded_icp_batch`` of phase 4's first 8 pairs (S = T = 8192) within
+   1e-5 of one process's ``icp_batch`` (bit-equal or not printed), K1
+   launched in each rank; (b) ``cli scanmatch --devices 2``, then with
+   ``--shard-scans``, each within 1e-5 of phase 4's CSV, ATE < 0.2 m, no
+   pair fallen back, K1 and K2 launched in each rank, each rank's scans
+   loaded (all, or its block of 132), rank 0 alone writing, seconds and
+   frames/s of each layout (two ranks sharing one card: not a scaling
+   number); (c) the keyframe store sharded over the ranks (each loading
+   its block) registering phase 8's loop pairs bit-equal to one store;
+   (d) ``cli graph --devices 2`` on phase 4's dataset: solver schur, K1
+   and K2 launched in each rank, phase 8's closures in order, positions
+   within 3e-2 m of phase 8's solution, its ATE beside the reference's;
+   (e) on phase 9's 512-pose graph the Schur step within 2e-4 of the
+   dense step at lam 1e-4, ms per LM step of Schur, dense and PCG; (f) a
+   separator capacity below the graph's count raises ``ValueError`` in
+   both ranks, a hang past 120 s failing the phase.  Prints the
+   collective calls and bytes of (b) and (d) and the phase's seconds; the
+   ranks' own output goes to files.
+14. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
@@ -163,6 +183,8 @@ from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
     nn2_search, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
+from lidar_slam_arvc_tpu_torch.parallel import _ranks  # noqa: E402
+from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline.graphslam import run_graphslam  # noqa: E402
@@ -830,7 +852,7 @@ def _stage2_spies():
     """Record, during one stage-2 run, the pose graph with its poses and
     iteration limit at each optimize, and the pairs of each loop-closure
     ICP batch."""
-    rec = {"optimize": [], "icp_batches": []}
+    rec = {"optimize": [], "icp_batches": [], "icp_pairs": []}
     optimize, batch = PoseGraph.optimize, KeyframeStore.compute_transformations_batch
 
     def optimize_spy(self, max_iterations=15, solver="auto"):
@@ -839,6 +861,7 @@ def _stage2_spies():
 
     def batch_spy(self, pairs, seeds):
         rec["icp_batches"].append(len(pairs))
+        rec["icp_pairs"].append((np.array(pairs), np.array(seeds, dtype=np.float32)))
         return batch(self, pairs, seeds)
 
     PoseGraph.optimize = optimize_spy
@@ -961,7 +984,7 @@ def phase_stage2(d, T_gt, ate_stage1, smi, dev):
           + f"; card {smi}")
     for k in shapes:
         shapes[k]["launches"] = launches[k]
-    return shapes
+    return shapes, rec
 
 
 def _step_ms(step, poses, reps: int) -> float:
@@ -1643,6 +1666,244 @@ def phase_host(d, T_gt, smi, dev, tmp):
           f"{renders}; {commands}; card {smi}")
 
 
+# ---------------------------------------------------------------- phase 13
+
+MESH_RANKS = 2              # ranks sharing the one card in phase 13
+MESH_TIMEOUT_S = 120.0      # a rank waiting longer in a collective fails the phase
+MESH_PAIRS = 8              # phase 13 (a): phase 4's first pairs
+MESH_ICP_REPS = 5           # (a): warm calls timed
+MESH_ICP_ATOL = 1e-5        # (a), (b): against one process
+MESH_SLAM_ATOL = 3e-2       # (d): positions against phase 8's solution
+MESH_STEP_ATOL = 2e-4       # (e): the Schur step against the dense one
+SEP_TOO_SMALL = 4           # (f): below the 512-pose graph's 9 separators
+
+
+def _mesh_cli(argv, logs):
+    """``cli.main(argv)`` with the reports of the ranks it launches (their
+    output in ``logs``): (reports, wall s)."""
+    got = []
+    launch = cli.launch_stages
+
+    def spy(a, n, device):
+        got.extend(launch(a, n, device, log_dir=logs))
+        return got
+
+    cli.launch_stages = spy
+    t0 = time.time()
+    try:
+        rc = cli.main(argv)
+    finally:
+        cli.launch_stages = launch
+    if rc != 0 or len(got) != MESH_RANKS:
+        fail(f"phase 13: {' '.join(argv)} returned {rc} with {len(got)} rank reports")
+    return got, time.time() - t0
+
+
+def _mesh_ranks_ok(label, reports, stage, kernels):
+    """Every rank on the card under gloo, torch only, its kernels
+    launched; rank 0 alone wrote."""
+    for r in reports:
+        prof = r[stage]["profile"]
+        if r["backend"] != "gloo" or not r["device"].startswith("cuda") \
+                or r["foreign_modules"]:
+            fail(f"phase 13 {label} rank {r['rank']}: backend {r['backend']} on "
+                 f"{r['device']}, imported {r['foreign_modules']}")
+        for k in kernels:
+            if prof["kernel_launches"][k] <= 0:
+                fail(f"phase 13 {label} rank {r['rank']} did not launch {k}")
+        if bool(r[stage]["written"]) != (r["rank"] == 0):
+            fail(f"phase 13 {label} rank {r['rank']} wrote {r[stage]['written']}")
+
+
+def _collectives(prof) -> str:
+    return ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                     for k, v in prof["collectives"].items() if v["calls"])
+
+
+def _mesh_stage1(d, T_gt, tmp, logs):
+    """(b): ``cli scanmatch --devices 2``, then with ``--shard-scans``,
+    each against phase 4's one-process CSV."""
+    euroc = EurocDataset(d)
+    _, rel1 = euroc.read_trajectory("/robot0/scanmatcher/scanmatcher_relative.csv")
+    k = sm.sharded_rows(N_SCANS, MESH_RANKS, IcpConfig().batch_size)
+    out = []
+    for shard in (False, True):
+        dm = os.path.join(tmp, f"mesh_sm_{int(shard)}")
+        shutil.copytree(d, dm)
+        argv = ["scanmatch", "-i", dm, "--capacity", str(CAPACITY), "--devices",
+                str(MESH_RANKS)] + (["--shard-scans"] if shard else [])
+        reports, wall = _mesh_cli(argv, logs)
+        label = "--shard-scans" if shard else "replicated stack"
+        _mesh_ranks_ok(label, reports, "scanmatch", ("nn_sweep", "ball_moments"))
+        for r in reports:
+            want = k if shard else N_SCANS
+            if r["scanmatch"]["scans_loaded_locally"] != want:
+                fail(f"phase 13 {label} rank {r['rank']} loaded "
+                     f"{r['scanmatch']['scans_loaded_locally']} scans, expected {want}")
+        em = EurocDataset(dm)
+        _, rel = em.read_trajectory("/robot0/scanmatcher/scanmatcher_relative.csv")
+        _, T = em.read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
+        diff = float(np.abs(rel - rel1).max())
+        err = ate(T, T_gt)["rmse"]
+        prof = reports[0]["scanmatch"]["profile"]
+        if diff > MESH_ICP_ATOL or err >= VOXEL or prof["pairs_fallback_to_seed"]:
+            fail(f"phase 13 {label}: relative transforms {diff} from phase 4's, ATE "
+                 f"{err} m, {prof['pairs_fallback_to_seed']} pairs fell back")
+        secs = prof["load_preprocess_seconds"] + prof["icp_seconds"]
+        out.append(
+            f"{label}: max |diff| vs phase 4 {diff:.3g} (bit-equal {diff == 0.0}), "
+            f"ATE {err:.5f} m, 0 fallbacks, scans loaded per rank "
+            f"{[r['scanmatch']['scans_loaded_locally'] for r in reports]}, "
+            f"launches per rank "
+            f"{[(r['scanmatch']['profile']['kernel_launches']['nn_sweep'], r['scanmatch']['profile']['kernel_launches']['ball_moments']) for r in reports]} "
+            f"(K1, K2), load+preprocess {prof['load_preprocess_seconds']} s, ICP "
+            f"{prof['icp_seconds']} s, {prof['frames_per_second']} ICP frames/s, "
+            f"{prof['pairs'] / secs:.3f} frames/s end to end, command {wall:.3f} s "
+            f"(two ranks sharing one card: not a scaling number); collectives "
+            f"{_collectives(prof)}")
+    return "; ".join(out)
+
+
+def _mesh_stage2(d, T_gt, tmp, logs):
+    """(d): ``cli graph --devices 2`` against phase 8's run."""
+    _, sol8 = EurocDataset(d).read_trajectory("/robot0/SLAM/solution_graphslam.csv")
+    dm = os.path.join(tmp, "mesh_graph")
+    shutil.copytree(d, dm)
+    reports, wall = _mesh_cli(["graph", "-i", dm, "--capacity", str(STAGE2_CAPACITY),
+                               "--devices", str(MESH_RANKS)], logs)
+    _mesh_ranks_ok("graph", reports, "graph", ("nn_sweep", "ball_moments"))
+    prof = reports[0]["graph"]["profile"]
+    if prof["solver"] != "schur" or prof["mesh_devices"] != MESH_RANKS:
+        fail(f"phase 13 graph: solver {prof['solver']} over {prof['mesh_devices']} ranks")
+    with open(f"{dm}/robot0/SLAM/loop_closures.csv") as f:
+        closures = [tuple(int(v) for v in row.split(",")[1:])
+                    for row in f.read().split()[1:]]
+    if closures != REFERENCE_CLOSURES:
+        fail(f"phase 13 graph accepted {closures}, phase 8 {REFERENCE_CLOSURES}")
+    _, sol = EurocDataset(dm).read_trajectory("/robot0/SLAM/solution_graphslam.csv")
+    dpos = float(np.abs(sol[:, :3, 3] - sol8[:, :3, 3]).max())
+    err = ate(sol, T_gt)["rmse"]
+    if sol.shape != sol8.shape or not np.isfinite(sol).all() or dpos > MESH_SLAM_ATOL:
+        fail(f"phase 13 graph: positions {dpos} m from phase 8's solution")
+    keys = ("store_load_preprocess_seconds", "solve_loop_seconds", "optimize_seconds",
+            "loop_candidate_search_seconds", "loop_icp_seconds", "marginals_seconds",
+            "host_other_seconds")
+    return (f"graph: solver schur over {MESH_RANKS} ranks, phase 8's "
+            f"{len(closures)} closures in order, positions within {dpos:.3g} m of "
+            f"phase 8's solution, ATE {err:.7f} m (the reference's "
+            f"{REFERENCE_FULL_ATE:.7f}), launches per rank "
+            f"{[(r['graph']['profile']['kernel_launches']['nn_sweep'], r['graph']['profile']['kernel_launches']['ball_moments']) for r in reports]} "
+            f"(K1, K2), " + ", ".join(f"{k} {prof[k]}" for k in keys)
+            + f", solver stats {prof['solver_stats']}, command {wall:.3f} s; "
+            f"collectives {_collectives(prof)}")
+
+
+def _mesh_pairs(d, dev):
+    """(a)'s input: phase 4's first MESH_PAIRS consecutive pairs as stage 1
+    preprocesses them (S = T = 8192), seeded by the odometry."""
+    euroc = EurocDataset(d)
+    times = euroc.read_csv("/robot0/scanmatcher/lidar_times.csv")["#timestamp [ns]"]
+    cfg = IcpConfig(capacity=CAPACITY)
+    scans, _, _ = sm.load_and_preprocess_streamed(
+        euroc, times[:MESH_PAIRS + 1], cfg, "icppointplane", VOXEL, dev)
+    odo = euroc.read_csv("/robot0/odom/data.csv")
+    odo = euroc.get_rows_at_times(odo, euroc.get_closest_times(times, odo["#timestamp [ns]"]))
+    seeds = sm.relative_odometry(odo)[:MESH_PAIRS].astype(np.float32)
+    params = ICPParams(max_correspondence_distance=cfg.distance_threshold,
+                       max_iterations=cfg.max_iterations)
+    src, tgt = slice(1, MESH_PAIRS + 1), slice(0, MESH_PAIRS)
+    batch = tuple(a.contiguous() for a in (
+        scans.points[src], scans.mask[src], scans.points[tgt], scans.mask[tgt],
+        scans.normals[tgt])) + (torch.from_numpy(seeds).to(dev),)
+    return batch, params
+
+
+def phase_mesh(d, T_gt, smi, dev, tmp, stage2_rec):
+    """Two ranks on the one card: sharded ICP, stage 1 both layouts, the
+    sharded store, stage 2 by the Schur solve, the Schur step at 512
+    poses, a separator overflow."""
+    t_phase = time.time()
+    logs = os.path.join(tmp, "rank_logs")
+    os.makedirs(logs, exist_ok=True)
+    batch, params = _mesh_pairs(d, dev)
+    pairs = np.concatenate([p for p, _ in stage2_rec["icp_pairs"]])
+    seeds = np.concatenate([s for _, s in stage2_rec["icp_pairs"]])
+    times = EurocDataset(d).read_csv("/robot0/scanmatcher/lidar_times.csv")["#timestamp [ns]"]
+    g, _ = solver_graph(512, dev)
+    state = {k: getattr(g, k) for k in FACTOR_FIELDS + (
+        "poses", "n_poses", "n_chain", "n_loop", "n_gps", "n_prior",
+        "chain_capacity", "T0", "T0_gps")}
+    sep_cap = g._sep_capacity(MESH_RANKS)
+    t0 = time.time()
+    try:
+        ranks = _mesh.launch(
+            MESH_RANKS, _ranks.sequence,
+            (_ranks.sharded_icp, (tuple(t.cpu().numpy() for t in batch), params,
+                                  "point_to_plane", MESH_ICP_REPS)),
+            (_ranks.store_pairs, (d, times, {"capacity": STAGE2_CAPACITY},
+                                  "icppointplane", pairs, seeds)),
+            (_ranks.schur_step, (state, 1e-4, sep_cap, STEP_REPS)),
+            (_ranks.schur_solve, (state, SEP_TOO_SMALL, 2)),
+            (_ranks.counters, ()), device="cuda", timeout_s=MESH_TIMEOUT_S,
+            log_dir=logs)
+    except _mesh.RankError as exc:
+        fail(f"phase 13: a rank failed: {exc}")
+    wall = time.time() - t0
+    backend = ranks[0][-1]["backend"]
+    if backend != "gloo" or any(r[-1]["foreign_modules"] for r in ranks):
+        fail(f"phase 13: backend {backend}, foreign modules "
+             f"{[r[-1]['foreign_modules'] for r in ranks]}")
+    # (a) sharded ICP against one process
+    one = icp_mod.icp_batch(*batch, params, "point_to_plane")
+    T1 = one.transform.cpu().numpy()
+    a_diff = max(float(np.abs(r[0]["transform"] - T1).max()) for r in ranks)
+    if a_diff > MESH_ICP_ATOL or any(r[0]["k1_launches"] <= 0 for r in ranks):
+        fail(f"phase 13 (a): sharded ICP {a_diff} from one process, K1 launches "
+             f"{[r[0]['k1_launches'] for r in ranks]}")
+    icp_one_s = sum(_timed(lambda: icp_mod.icp_batch(*batch, params, "point_to_plane"))[0]
+                    for _ in range(MESH_ICP_REPS)) / MESH_ICP_REPS
+    # (c) the sharded store against one store
+    store = KeyframeStore(d, times, cfg=IcpConfig(capacity=STAGE2_CAPACITY), device=dev)
+    T_store = store.load_and_preprocess().compute_transformations_batch(pairs, seeds)
+    for r in ranks:
+        if not np.array_equal(r[1]["T"], T_store) or r[1]["k1_launches"] <= 0:
+            fail(f"phase 13 (c): rank {r[-1]['rank']}'s sharded store differs from "
+                 f"one store by {float(np.abs(r[1]['T'] - T_store).max())}")
+    # (e) the Schur step at 512 poses against the dense step
+    f = make_factor_data(512, dev, **{k: getattr(g, k) for k in FACTOR_FIELDS})
+    p0 = torch.as_tensor(g.poses, device=dev)
+    ref, _ = solver._lm_step(p0, f, 512, 1e-4)
+    e_diff = max(float(np.abs(r[2]["poses"] - ref.cpu().numpy()).max()) for r in ranks)
+    if e_diff > MESH_STEP_ATOL:
+        fail(f"phase 13 (e): Schur step {e_diff} from the dense step at 512 poses")
+    dense_ms = _step_ms(lambda p: solver._lm_step(p, f, 512, 1e-4), p0, STEP_REPS)
+    pcg_ms = _step_ms(lambda p: pcg.pcg_lm_step(p, f, 512, 1e-4), p0, STEP_REPS)
+    # (f) the separator overflow, raised in every rank
+    for r in ranks:
+        if "separator count" not in r[3].get("error", ""):
+            fail(f"phase 13 (f): rank {r[-1]['rank']} gave {r[3]} with "
+                 f"sep_capacity {SEP_TOO_SMALL}")
+    stage1 = _mesh_stage1(d, T_gt, tmp, logs)
+    stage2 = _mesh_stage2(d, T_gt, tmp, logs)
+    print(f"phase 13 multi-device ({MESH_RANKS} ranks sharing {smi}, backend "
+          f"{backend}, spawned, rendezvous through a FileStore): (a) sharded ICP of "
+          f"{MESH_PAIRS} phase-4 pairs (S=T={CAPACITY}) vs one process max |diff| "
+          f"{a_diff:.3g} (bit-equal {a_diff == 0.0}), K1 launches per rank "
+          f"{[r[0]['k1_launches'] for r in ranks]}, wall per call (mean of "
+          f"{MESH_ICP_REPS} warm calls) per rank {[round(r[0]['seconds'], 4) for r in ranks]} "
+          f"s (the first, cold: {[round(r[0]['seconds_first'], 3) for r in ranks]}) "
+          f"vs one process {icp_one_s:.4f} s; (c) sharded store, {len(pairs)} loop pairs of phase 8: "
+          f"bit-equal to one store, {ranks[0][1]['loaded']} scans loaded per rank, "
+          f"K1 launches per rank {[r[1]['k1_launches'] for r in ranks]}; (e) 512 poses: "
+          f"Schur step vs dense {e_diff:.3g}, {ranks[0][2]['n_sep']} separators "
+          f"(capacity {sep_cap}), ms per LM step Schur "
+          f"{[round(r[2]['ms_per_step'], 3) for r in ranks]} (per rank), dense "
+          f"{dense_ms:.3f}, PCG {pcg_ms:.3f}; (f) sep_capacity {SEP_TOO_SMALL}: "
+          f"ValueError in every rank ('{ranks[0][3]['error'][:40]}...'); launch of "
+          f"(a, c, e, f) {wall:.3f} s; (b) {stage1}; (d) {stage2}; phase "
+          f"{time.time() - t_phase:.1f} s; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1657,10 +1918,11 @@ def main():
         res.update(phase_k3_k4(cases))
         res["nn_pruned"] = phase_k5(rng, dev)
         launches = phase_nn_impls(d, T_gt, dev)
-        stage2 = phase_stage2(d, T_gt, ate1, smi, dev)
+        stage2, stage2_rec = phase_stage2(d, T_gt, ate1, smi, dev)
         phase_planes(tmp, smi, dev)
         phase_fpfh(tmp, smi, dev)
         phase_host(d, T_gt, smi, dev, tmp)
+        phase_mesh(d, T_gt, smi, dev, tmp, stage2_rec)
     phase_solvers(dev)
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1

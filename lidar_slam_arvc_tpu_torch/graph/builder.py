@@ -8,7 +8,8 @@ accumulate in host numpy buffers of fixed capacity with the reference's
 slot layout: between slots [0, chain_capacity) hold consecutive (j == i+1)
 edges, the slots after them loop closures and chain overflow.  Each
 ``optimize`` moves the active factors to the device (``make_factor_data``)
-and runs the dense or the PCG solver there.
+and runs the dense or the PCG solver there, or, over a mesh of ranks
+(``parallel/mesh.py``), the distributed Schur solve.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from lidar_slam_arvc_tpu_torch.graph.pcg import marginal_blocks_pcg, solve_graph
 from lidar_slam_arvc_tpu_torch.graph.solver import marginal_covariances, solve_graph
 from lidar_slam_arvc_tpu_torch.ops._cuda import torch_device
 
-SOLVERS = ("auto", "dense", "pcg")
+SOLVERS = ("auto", "dense", "pcg", "schur")
 # the largest pose capacity that optimize(solver="auto") solves densely;
 # the reference's, measured on a TPU (its auto_solver docstring), kept so
 # both packages pick the same solver
@@ -36,8 +37,12 @@ class PoseGraph:
                  max_poses: int = 4096, max_between: int | None = None,
                  max_gps: int | None = None,
                  sigmas: NoiseSigmas = DEFAULT_SIGMAS,
-                 chain_capacity: int | None = None, device="cuda"):
+                 chain_capacity: int | None = None, device="cuda", mesh=None):
+        """``mesh``: a ``parallel.mesh.DataMesh`` of the ranks that solve
+        the graph together (solver 'schur'); every rank builds the same
+        graph."""
         self.device = torch_device(device, "PoseGraph")
+        self.mesh = mesh
         self.max_poses = max_poses
         self.max_between = max_between or (4 * max_poses)
         self.max_gps = max_gps or max_poses
@@ -80,7 +85,8 @@ class PoseGraph:
 
     @classmethod
     def from_reference_state(cls, d: dict, device="cuda",
-                             sigmas: NoiseSigmas = DEFAULT_SIGMAS) -> "PoseGraph":
+                             sigmas: NoiseSigmas = DEFAULT_SIGMAS,
+                             mesh=None) -> "PoseGraph":
         """A graph holding the buffers and counters of a JAX-package
         PoseGraph, given as a dict of numpy arrays and ints: ``poses``, the
         factor buffers (``bt_*``, ``gps_*``, ``pr_*``), ``n_poses``,
@@ -90,7 +96,7 @@ class PoseGraph:
         g = cls(T0=d["T0"], T0_gps=d["T0_gps"], max_poses=poses.shape[0],
                 max_between=len(d["bt_i"]), max_gps=len(d["gps_i"]),
                 sigmas=sigmas, chain_capacity=int(d["chain_capacity"]),
-                device=device)
+                device=device, mesh=mesh)
         g.poses = poses.copy()
         for k in FACTOR_FIELDS:
             setattr(g, k, np.array(d[k], dtype=getattr(g, k).dtype))
@@ -159,31 +165,58 @@ class PoseGraph:
         return torch.as_tensor(self.poses, device=self.device)
 
     def auto_solver(self) -> str:
-        """The solver optimize(solver='auto') picks: dense up to
-        DENSE_MAX_POSES of capacity, PCG beyond."""
+        """The solver optimize(solver='auto') picks: schur under a mesh of
+        several ranks when the pose capacity divides over it in chunks of
+        two poses or more; else dense up to DENSE_MAX_POSES of capacity,
+        PCG beyond."""
+        if (self.mesh is not None and self.mesh.size > 1
+                and self.max_poses % self.mesh.size == 0
+                and self.max_poses >= 2 * self.mesh.size):
+            return "schur"
         return "dense" if self.max_poses <= DENSE_MAX_POSES else "pcg"
 
     def optimize(self, max_iterations: int = 15, solver: str = "auto") -> float:
         """Batch LM re-solve of the whole graph (replaces isam.update,
         reference graphSLAM.py:102-105).  ``solver``: 'dense' (Cholesky on
         the (6N, 6N) normal equations), 'pcg' (preconditioned CG with the
-        cyclic-reduction chain preconditioner), 'auto' (``auto_solver``).
-        'schur', the distributed solve, is not ported yet."""
-        if solver == "schur":
-            raise NotImplementedError("solver='schur' (the distributed "
-                                      "solve) is not ported yet (ROADMAP M8)")
+        cyclic-reduction chain preconditioner), 'schur' (distributed
+        chunk-wise Schur elimination over the attached mesh, or over the
+        ranks of the process group when none is attached; every rank must
+        call it), 'auto' (``auto_solver``)."""
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r} ({' | '.join(SOLVERS)})")
         if solver == "auto":
             solver = self.auto_solver()
-        run = solve_graph_pcg if solver == "pcg" else solve_graph
-        poses, cost = run(self._poses_on_device(), self._factor_data(),
-                          self.n_poses, max_iterations=max_iterations,
-                          stats=self.stats)
+        if solver == "schur":
+            from lidar_slam_arvc_tpu_torch.parallel.mesh import data_mesh
+            from lidar_slam_arvc_tpu_torch.parallel.schur import schur_solve_graph
+            mesh = self.mesh if self.mesh is not None else data_mesh()
+            poses, cost = schur_solve_graph(
+                mesh, self._poses_on_device(), self._factor_data(), self.n_poses,
+                sep_capacity=self._sep_capacity(mesh.size),
+                max_iterations=max_iterations, stats=self.stats)
+        else:
+            run = solve_graph_pcg if solver == "pcg" else solve_graph
+            poses, cost = run(self._poses_on_device(), self._factor_data(),
+                              self.n_poses, max_iterations=max_iterations,
+                              stats=self.stats)
         self.poses = poses.cpu().numpy()
         self.stats["optimizations"] += 1
         self.stats["host_syncs"] += 1
         return float(cost)
+
+    def _sep_capacity(self, n_devices: int) -> int:
+        """Separator capacity for the Schur solve: the count of poses
+        touched by active edges that cross chunks, rounded up to a power
+        of two (at least 16), at most the pose capacity."""
+        from lidar_slam_arvc_tpu_torch.parallel.schur import separators
+        active = self.bt_winv.any(axis=1)
+        n_sep = len(separators(self.bt_i[active], self.bt_j[active],
+                               self.max_poses, n_devices))
+        cap = 16
+        while cap < n_sep:
+            cap *= 2
+        return min(cap, self.max_poses)
 
     def marginal_covariances(self, indices=None) -> np.ndarray:
         """Tangent-space [w, v] 6x6 marginal covariance blocks

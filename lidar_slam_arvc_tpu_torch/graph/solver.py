@@ -154,18 +154,29 @@ def _retract(poses, delta, n_active):
     return compose(poses, se3_exp(delta))
 
 
+def damp(H: torch.Tensor, lam) -> torch.Tensor:
+    """H with Marquardt damping on its diagonal: H + diag(lam diag(H) + 1e-9)."""
+    return H + torch.diag(torch.diagonal(H) * lam + 1e-9)
+
+
+def equilibrated_solve(A: torch.Tensor, R: torch.Tensor):
+    """(A^-1 R, Cholesky info) for a symmetric positive definite A and
+    right-hand sides R (n,) or (n, k), through a Jacobi-equilibrated f32
+    Cholesky: rotation vs weak-prior rows put cond(A) at ~1e8, and S A S
+    solves several digits more accurately.  info != 0: A did not factor
+    and the result is meaningless."""
+    s = torch.rsqrt(torch.clamp(torch.diagonal(A), min=1e-30))
+    L, info = torch.linalg.cholesky_ex(A * s[:, None] * s[None, :])
+    sr = s if R.dim() == 1 else s[:, None]
+    X = torch.cholesky_solve((R * sr).reshape(R.shape[0], -1), L)
+    return sr * X.reshape(R.shape), info
+
+
 def _lm_step(poses, f: FactorData, n_active: int, lam: float):
     """One damped step: (candidate poses, candidate cost).  A matrix that
     the Cholesky cannot factor gives an infinite cost (a rejected step)."""
     H, b = _assemble(poses, f, n_active)
-    # Marquardt damping on the diagonal, then Jacobi equilibration before
-    # the f32 Cholesky: rotation vs weak-prior rows put cond(H) at ~1e8,
-    # and S H S solves several digits more accurately
-    d = torch.diagonal(H) * lam + 1e-9
-    damped = H + torch.diag(d)
-    s = torch.rsqrt(torch.clamp(torch.diagonal(damped), min=1e-30))
-    L, info = torch.linalg.cholesky_ex(damped * s[:, None] * s[None, :])
-    delta = s * torch.cholesky_solve((-(b * s))[:, None], L)[:, 0]
+    delta, info = equilibrated_solve(damp(H, lam), -b)
     new = _retract(poses, delta.reshape(-1, 6), n_active)
     cost = graph_cost(new, f)
     return new, torch.where(info == 0, cost, torch.full_like(cost, torch.inf))

@@ -19,8 +19,16 @@ them under the store's method (reference keyframes/store.py:288-320):
   keys every call with ``PRNGKey(0)``.
 
 The ground planes are drawn from ``seeded_generator(PLANE_SEED, i)`` for
-scan i, as the reference's store preprocesses with seed 0.  Sharded
-stores and multi-process loading (M8) are not ported.
+scan i, as the reference's store preprocesses with seed 0.
+
+Over a mesh of ranks (``parallel/mesh.py``) a store is sharded: rank d
+keeps only its contiguous block of the scans (whole preprocessing
+batches), padded with copies of the last one (``shard``, or ``load_and_preprocess(mesh=...)``, which parses
+only that block's PCDs and keys each scan's draws by its index in the
+whole sequence).  A registration call gathers the rows its pairs address
+to every rank and runs the store's method there, so every rank computes
+the same transforms; rank 0's are broadcast, so that the ranks' next
+decisions rest on one result.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset
 from lidar_slam_arvc_tpu_torch.ops._cuda import torch_device
+from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh
 from lidar_slam_arvc_tpu_torch.pipeline.preprocess import (
     METHODS as REGISTRATION_METHODS, PLANE_SEED,
 )
@@ -67,6 +76,7 @@ class KeyframeStore:
         self.nonground_mask = None
         self.overflow = None   # (N,) voxels dropped per scan (capacity)
         self.n_loaded_locally = 0
+        self.mesh = None       # set when the scan axis is sharded
 
     @classmethod
     def from_arrays(cls, points, mask, normals, method: str = "icppointplane",
@@ -91,21 +101,97 @@ class KeyframeStore:
     def loaded(self) -> bool:
         return self.points is not None
 
-    def load_and_preprocess(self, keyframe_sampling: int = 1) -> "KeyframeStore":
+    def load_and_preprocess(self, keyframe_sampling: int = 1,
+                            mesh=None) -> "KeyframeStore":
         """Load every ``keyframe_sampling``-th scan and preprocess it on the
-        store's device (reference keyframemanager.py:20-50, all at once)."""
+        store's device (reference keyframemanager.py:20-50, all at once).
+        With a ``mesh`` of several ranks, this rank loads only its block
+        of the sharded store."""
         from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import (
             load_and_preprocess_streamed,
         )
         if keyframe_sampling > 1:
             self.scan_times = self.scan_times[::keyframe_sampling]
-        scans, self.overflow, _ = load_and_preprocess_streamed(
-            EurocDataset(self.directory), self.scan_times, self.cfg,
-            self.method, self.voxel_size, self.device, seed=PLANE_SEED)
+        times, first = self.scan_times, 0
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            k = self._rows_per_rank(mesh)
+            first = mesh.rank * k
+            times = np.concatenate([times, np.repeat(
+                times[-1:], mesh.size * k - len(times))])[first:first + k]
+        scans, overflow, _ = load_and_preprocess_streamed(
+            EurocDataset(self.directory), times, self.cfg, self.method,
+            self.voxel_size, self.device, seed=PLANE_SEED, first=first)
         self.points, self.mask, self.normals = scans.points, scans.mask, scans.normals
         self.ground_mask, self.nonground_mask = scans.ground_mask, scans.nonground_mask
-        self.n_loaded_locally = len(self.scan_times)
+        self.n_loaded_locally = len(times)
+        if sharded:
+            self.mesh = mesh
+            overflow = _mesh.gather_rows(mesh, torch.as_tensor(overflow),
+                                         mesh.size * len(times), first)
+            overflow = overflow.cpu().numpy()[:len(self.scan_times)]
+        self.overflow = overflow
         return self
+
+    # -------------------------------------------------------- sharding
+
+    def _rows_per_rank(self, mesh) -> int:
+        """Scans per rank: whole preprocessing batches, so that a rank's
+        batches are the one-rank store's (stage 1's sharded rows)."""
+        from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import sharded_rows
+        return sharded_rows(len(self.scan_times), mesh.size, self.cfg.batch_size)
+
+    def shard(self, mesh) -> "KeyframeStore":
+        """Keep only this rank's contiguous block of the scans, the count
+        padded to whole batches on every rank with copies of the last scan
+        (callers never address a padding row)."""
+        if not self.loaded:
+            raise RuntimeError("call load_and_preprocess first")
+        if self.sharded:
+            raise RuntimeError("the store is sharded already")
+        k = self._rows_per_rank(mesh)
+        lo = mesh.rank * k
+        pad = mesh.size * k - self.points.shape[0]
+
+        def block(a):
+            if a is None:
+                return None
+            if pad:
+                a = torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])])
+            return a[lo:lo + k].contiguous()
+
+        self.points, self.mask, self.normals = (
+            block(self.points), block(self.mask), block(self.normals))
+        self.ground_mask, self.nonground_mask = (
+            block(self.ground_mask), block(self.nonground_mask))
+        self.mesh = mesh
+        return self
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    def _gathered(self, scans: np.ndarray) -> "KeyframeStore":
+        """A store of the listed scans' rows, gathered from the ranks
+        that hold them (an exact gather: every rank gets the same bits)."""
+        k = self.points.shape[0]
+        lo = self.mesh.rank * k
+        mine = (scans >= lo) & (scans < lo + k)
+        dev = self.points.device
+        rows = torch.as_tensor(scans[mine] - lo, device=dev)
+        at = torch.as_tensor(np.nonzero(mine)[0], device=dev)
+
+        def gather(a):
+            if a is None:
+                return None
+            buf = a.new_zeros((len(scans),) + a.shape[1:])
+            buf[at] = a[rows]
+            return _mesh.merge_exact(self.mesh, buf)
+
+        return KeyframeStore.from_arrays(
+            gather(self.points), gather(self.mask), gather(self.normals),
+            method=self.method, cfg=self.cfg, ground_mask=gather(self.ground_mask),
+            nonground_mask=gather(self.nonground_mask))
 
     # ------------------------------------------------------ registration
 
@@ -129,6 +215,12 @@ class KeyframeStore:
         if not self.loaded:
             raise RuntimeError("call load_and_preprocess first")
         pairs = np.asarray(pairs)
+        if self.sharded:
+            scans, inv = np.unique(pairs, return_inverse=True)
+            T = self._gathered(scans).compute_transformations_batch(
+                inv.reshape(pairs.shape), seeds)
+            return _mesh.broadcast(self.mesh, torch.as_tensor(
+                T, device=self.mesh.device)).cpu().numpy()
         dev = self.points.device
         ti = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
         si = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)

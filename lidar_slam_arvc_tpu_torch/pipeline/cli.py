@@ -4,6 +4,7 @@
     python -m lidar_slam_arvc_tpu_torch.pipeline.cli graph     -i <dataset>
     python -m lidar_slam_arvc_tpu_torch.pipeline.cli run       -i <dataset>
         [--capacity N] [--batch-size N] [--source-stride N] [--device cuda]
+        [--devices N] [--shard-scans]
     python -m lidar_slam_arvc_tpu_torch.pipeline.cli view      -i <dataset>
     python -m lidar_slam_arvc_tpu_torch.pipeline.cli convert   -i <dataset>
         [--mesh] [--alpha A]
@@ -19,6 +20,16 @@ default to the device ``cuda``; with no card that is an error, not a
 silent move to the CPU (``--device cpu`` asks for the kernels' plain
 versions).  ``view``, ``convert``, ``diag`` and ``ingest`` run on the host
 (numpy; matplotlib for the PNGs, scipy for the meshes).
+
+``--devices N`` runs the stages on N ranks, one process per device
+(``parallel/mesh.py``): stage 1's pairs split over them (``--shard-scans``:
+each rank loads and preprocesses only its block of scans), stage 2 solves
+by the distributed Schur complement over a sharded keyframe store.  Inside
+a process group (``torchrun``'s environment, one or several hosts) the
+command joins it; otherwise it spawns the N ranks itself, rank r on
+``cuda:{r % cards}`` (or the CPU under ``--device cpu``), and fails when
+any rank fails.  ``--devices 0`` means every rank of the group, or every
+visible card.
 """
 
 from __future__ import annotations
@@ -40,6 +51,15 @@ def _add_stage_options(p):
                         "(1 = all points)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="ranks (one process per device) for the pipeline: "
+                        "stage-1 pairs split over them, stage-2 "
+                        "distributed Schur solve; 0 = every rank of the "
+                        "group or every visible card, default 1")
+    p.add_argument("--shard-scans", action="store_true",
+                   help="with --devices N: each rank loads and preprocesses "
+                        "only its block of the scans (halo for the pairs "
+                        "across blocks) instead of every scan")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -76,7 +96,10 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _stages(args) -> None:
+def _stages(args, progress: bool = True) -> dict:
+    """The stage commands in this process (a rank of the group, if one is
+    initialised); returns each stage's profile, the paths this process
+    wrote and the scans it loaded."""
     from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
     overrides = {}
     if args.capacity:
@@ -85,27 +108,72 @@ def _stages(args) -> None:
         overrides["batch_size"] = args.batch_size
     if args.source_stride:
         overrides["source_stride"] = args.source_stride
+    if args.devices is not None:
+        overrides["mesh_devices"] = args.devices
+    if args.shard_scans:
+        overrides["shard_scans"] = True
     cfg = IcpConfig(**overrides)
 
+    report = {}
     preprocessed = None
     if args.command in ("scanmatch", "run"):
         from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import run_scanmatcher
         out = run_scanmatcher(args.directory, cfg=cfg, device=args.device,
+                              progress=progress,
                               return_preprocessed=args.command == "run")
         preprocessed = out.get("preprocessed")
         if preprocessed is not None and preprocessed["voxel_size"] is not None:
             # stage 2 wants full resolution: a voxelised stack can never be
             # reused, so it is not kept alive through stage 2
             preprocessed = None
-        print(f"scanmatcher: {len(out['relative'])} pairs, "
-              f"{out['frames_per_second']:.2f} frames/s (ICP)")
+        report["scanmatch"] = {k: out[k] for k in
+                               ("profile", "written", "scans_loaded_locally")}
+        if progress:
+            print(f"scanmatcher: {len(out['relative'])} pairs, "
+                  f"{out['frames_per_second']:.2f} frames/s (ICP)")
     if args.command in ("graph", "run"):
         from lidar_slam_arvc_tpu_torch.pipeline.graphslam import run_graphslam
         out = run_graphslam(args.directory, cfg=cfg, device=args.device,
-                            preprocessed=preprocessed)
-        print(f"graphSLAM: {len(out['solution'])} poses, "
-              f"{out['n_loop_closures']} loop closures, "
-              f"{out['seconds']:.1f}s")
+                            progress=progress, preprocessed=preprocessed)
+        report["graph"] = {k: out[k] for k in
+                           ("profile", "written", "store_scans_loaded_locally")}
+        if progress:
+            print(f"graphSLAM: {len(out['solution'])} poses, "
+                  f"{out['n_loop_closures']} loop closures, "
+                  f"{out['seconds']:.1f}s")
+    return report
+
+
+def rank_stages(argv) -> dict:
+    """The stage command ``argv`` in one rank of a launched group (the
+    target of ``launch_stages``): rank 0 prints the progress.  Returns
+    ``_stages``'s report with the rank's index and kernel counters."""
+    from lidar_slam_arvc_tpu_torch.parallel import _ranks
+    args = _parser().parse_args(argv)
+    ident = _ranks.counters()
+    report = _stages(args, progress=ident["rank"] == 0)
+    report.update(_ranks.counters())
+    return report
+
+
+def launch_stages(argv, n: int, device, log_dir: str | None = None) -> list:
+    """Spawn n ranks that run the stage command ``argv`` together; returns
+    each rank's report (``rank_stages``), raises when a rank fails.
+    ``log_dir``: the ranks' output goes to files there."""
+    from lidar_slam_arvc_tpu_torch.parallel.mesh import launch
+    return launch(n, rank_stages, list(argv), device=device, log_dir=log_dir)
+
+
+def _ranks_requested(args) -> int:
+    """The ranks ``--devices`` asks this process to spawn (1: run here)."""
+    import torch
+    from lidar_slam_arvc_tpu_torch.parallel import mesh, multihost
+    if args.devices in (None, 1) or mesh.world_size() > 1 \
+            or multihost.in_torchrun_group():
+        return 1
+    if args.devices == 0:
+        return (torch.cuda.device_count() or 1) if args.device.startswith("cuda") else 1
+    return args.devices
 
 
 def _diagnostics_report(directory: str) -> dict:
@@ -125,9 +193,24 @@ def _diagnostics_report(directory: str) -> dict:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     if args.command in ("scanmatch", "graph", "run"):
-        _stages(args)
+        from lidar_slam_arvc_tpu_torch.parallel import mesh, multihost
+        n = _ranks_requested(args)
+        if n > 1:
+            reports = launch_stages(argv, n, args.device)
+            print(f"{n} ranks done ({reports[0]['backend']} on "
+                  + ", ".join(r["device"] for r in reports) + ")")
+        elif args.devices not in (None, 1) and multihost.in_torchrun_group() \
+                and mesh.world_size() == 1:
+            multihost.initialize(device=args.device)
+            try:
+                _stages(args, progress=mesh.world_rank() == 0)
+            finally:
+                mesh.close_rank()
+        else:
+            _stages(args, progress=mesh.world_rank() == 0)
     elif args.command == "view":
         from lidar_slam_arvc_tpu_torch.viz.viewer import view_dataset
         view_dataset(args.directory)

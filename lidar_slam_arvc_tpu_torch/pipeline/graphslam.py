@@ -21,10 +21,19 @@ without it (``ImportError``) or when a file cannot be written
 (``OSError``) the stage still writes its CSVs and records the error in the
 profile's ``uncertainty_error``, as the reference does; an error in the
 marginals propagates.
+
+Over N ranks (``IcpConfig.mesh_devices``; ``parallel/mesh.py``) every rank
+builds the same graph and runs the same loop closer; the pose graph
+solves by the distributed Schur complement (``auto_solver``) unless it is
+too small to split (``_next_pow2(n) < 2 N``: no mesh), and the store is
+sharded over the ranks (each loads only its block with ``shard_scans``,
+else loads every scan and keeps its block).  Rank 0 alone computes the
+marginals, renders and writes the files; the others wait for it.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -38,6 +47,7 @@ from lidar_slam_arvc_tpu_torch.io.utm import filter_gps, gps2utm
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore
 from lidar_slam_arvc_tpu_torch.loop import LoopCloser
 from lidar_slam_arvc_tpu_torch.ops import _cuda
+from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh
 from lidar_slam_arvc_tpu_torch.pipeline.preprocess import PLANE_SEED
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter
@@ -133,10 +143,10 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
     distance_backwards = params.get("distance_backwards", 9.0)
     if cfg is None:
         cfg = IcpConfig()
-    if cfg.mesh_devices != 1 or cfg.shard_scans:
-        raise NotImplementedError("device meshes and sharded stores are not "
-                                  "ported yet (ROADMAP M8)")
+    mesh = _mesh.resolve_mesh(cfg.mesh_devices)
+    group = _mesh.data_mesh()
     launches0 = dict(_cuda.launch_counts)
+    collectives0 = copy.deepcopy(_mesh.collective_counts)
 
     (scan_times, sm_table, odo, gps, gps_times,
      T0_gps) = prepare_experiment_data(euroc)
@@ -153,6 +163,8 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
                                       trajectory_from_table(odo)[1], T0_gps))
 
     n = len(sm_rel) + 1
+    if mesh is not None and _next_pow2(n) < 2 * mesh.size:
+        mesh = None      # graph too small to split across the ranks
     # 2*max_poses chain slots (SM+ODO consecutive edges) + a loop budget
     # sized from the closing cadence
     max_poses = _next_pow2(n)
@@ -162,14 +174,15 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
     graph = PoseGraph(T0=np.eye(4), T0_gps=T0_gps, max_poses=max_poses,
                       max_between=chain_cap + loop_cap,
                       chain_capacity=chain_cap, max_gps=_next_pow2(n),
-                      device=device)
+                      device=device, mesh=mesh)
     graph.init_graph()
 
     t_store0 = time.time()
     store_reused = False
     closer = None
     if perform_loop_closing:
-        store_reused = _reusable(preprocessed, method, cfg, scan_times)
+        store_reused = (group.size == 1
+                        and _reusable(preprocessed, method, cfg, scan_times))
         if store_reused:
             store = KeyframeStore.from_arrays(
                 preprocessed["points"], preprocessed["mask"],
@@ -181,7 +194,9 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
         else:
             store = KeyframeStore(directory, scan_times, voxel_size=None,
                                   method=method, cfg=cfg, device=device)
-            store.load_and_preprocess()
+            store.load_and_preprocess(mesh=mesh if cfg.shard_scans else None)
+        if mesh is not None and not store.sharded:
+            store.shard(mesh)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         closer = LoopCloser(graph, store, distance_backwards=distance_backwards,
@@ -231,36 +246,17 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
     n_optimizations += 1
 
     solution_lidar = graph.get_solution_transforms_lidar()[:n]
-    euroc.save_transforms_as_csv(scan_times, solution_lidar,
-                                 "/robot0/SLAM/solution_graphslam.csv")
-    euroc.save_loop_closures_as_csv(loop_closures,
-                                    "/robot0/SLAM/loop_closures.csv")
-
-    # the marginals the uncertainty plot draws: every pose by dense
-    # chunked back-substitution up to the dense solver's capacity, only the
-    # skip-sampled ones (the ellipses drawn) by PCG beyond
-    t_marg = time.time()
-    skip = max(n // 64, 1)
-    if graph.max_poses <= 256:
-        covs = graph.marginal_covariances()
-    else:
-        idx = np.arange(0, graph.n_poses, skip)
-        covs = np.zeros((graph.n_poses, 6, 6))
-        covs[idx] = graph.marginal_covariances(indices=idx)
-    marginals_seconds = time.time() - t_marg
-    uncertainty_error = None
-    try:
-        plot_trajectory_with_uncertainty(
-            graph.current_estimate, covs,
-            f"{directory}/robot0/SLAM/uncertainty.png", skip=skip)
-        if gps is not None:
-            plot_gps_comparison(graph.current_estimate, gps, corr_indexes,
-                                f"{directory}/robot0/SLAM/gps_comparison.png")
-    except (ImportError, OSError) as exc:   # the renders only
-        uncertainty_error = f"{type(exc).__name__}: {exc}"
-        if progress:
-            print(f"uncertainty plot skipped: {uncertainty_error}")
     n_loops = sum(len(g) for g in loop_closures if g)
+    # the writer's work (the marginals are only drawn); its error is
+    # raised after the barrier below, which the other ranks wait at
+    written, marginals_seconds, uncertainty_error, write_error = [], 0.0, None, None
+    if group.rank == 0:
+        try:
+            written, marginals_seconds, uncertainty_error = _write_solution(
+                directory, euroc, graph, scan_times, solution_lidar,
+                loop_closures, gps, corr_indexes, n, progress)
+        except Exception as exc:
+            write_error = exc
     seconds = time.time() - t0
 
     loop_t = closer.timings if closer is not None else {
@@ -290,8 +286,11 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
         "solver": graph.auto_solver(),
         "method": method,
         "uncertainty_error": uncertainty_error,
-        "mesh_devices": 1,
-        "process_count": 1,
+        # the mesh the graph solved over (1: none)
+        "mesh_devices": int(mesh.size) if mesh is not None else 1,
+        "shard_scans": bool(cfg.shard_scans and mesh is not None),
+        "process_count": int(group.size),
+        "backend": group.backend,
         "store_scans_loaded_locally": int(store_loaded),
         "store_reused_stage1": bool(store_reused),
         "device": (torch.cuda.get_device_name(device)
@@ -299,13 +298,65 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
         "solver_stats": dict(graph.stats),
         "kernel_launches": {k: v - launches0[k]
                             for k, v in _cuda.launch_counts.items()},
+        "collectives": _mesh.counts_since(collectives0),
         **builds.report(),
     }
-    os.makedirs(f"{directory}/robot0/viz", exist_ok=True)
-    with open(f"{directory}/robot0/viz/graphslam_profile.json", "w") as f:
-        json.dump(profile, f, indent=2)
+
+    def write_profile():
+        if write_error is not None:
+            raise write_error
+        os.makedirs(f"{directory}/robot0/viz", exist_ok=True)
+        path = f"{directory}/robot0/viz/graphslam_profile.json"
+        with open(path, "w") as f:
+            json.dump(profile, f, indent=2)
+        return written + [path]
+
+    # downstream stages and callers read these files: no rank returns
+    # before the writer is done
+    written = _mesh.write_once(group, write_profile)
     return {"solution": solution_lidar, "scan_times": scan_times,
             "loop_closures": loop_closures, "n_loop_closures": n_loops,
             "gps_correspondences": corr_indexes,
             "store_scans_loaded_locally": int(store_loaded),
-            "seconds": seconds, "profile": profile}
+            "seconds": seconds, "written": written, "profile": profile}
+
+
+def _write_solution(directory, euroc, graph, scan_times, solution_lidar,
+                    loop_closures, gps, corr_indexes, n, progress):
+    """The two SLAM CSVs, the marginals and the renders (the writer's
+    part of stage 2): (paths written, marginals seconds, the renders'
+    recorded error or None)."""
+    euroc.save_transforms_as_csv(scan_times, solution_lidar,
+                                 "/robot0/SLAM/solution_graphslam.csv")
+    euroc.save_loop_closures_as_csv(loop_closures,
+                                    "/robot0/SLAM/loop_closures.csv")
+    written = [f"{directory}/robot0/SLAM/solution_graphslam.csv",
+               f"{directory}/robot0/SLAM/loop_closures.csv"]
+
+    # the marginals the uncertainty plot draws: every pose by dense
+    # chunked back-substitution up to the dense solver's capacity, only the
+    # skip-sampled ones (the ellipses drawn) by PCG beyond
+    t_marg = time.time()
+    skip = max(n // 64, 1)
+    if graph.max_poses <= 256:
+        covs = graph.marginal_covariances()
+    else:
+        idx = np.arange(0, graph.n_poses, skip)
+        covs = np.zeros((graph.n_poses, 6, 6))
+        covs[idx] = graph.marginal_covariances(indices=idx)
+    marginals_seconds = time.time() - t_marg
+    uncertainty_error = None
+    try:
+        plot_trajectory_with_uncertainty(
+            graph.current_estimate, covs,
+            f"{directory}/robot0/SLAM/uncertainty.png", skip=skip)
+        written.append(f"{directory}/robot0/SLAM/uncertainty.png")
+        if gps is not None:
+            plot_gps_comparison(graph.current_estimate, gps, corr_indexes,
+                                f"{directory}/robot0/SLAM/gps_comparison.png")
+            written.append(f"{directory}/robot0/SLAM/gps_comparison.png")
+    except (ImportError, OSError) as exc:   # the renders only
+        uncertainty_error = f"{type(exc).__name__}: {exc}"
+        if progress:
+            print(f"uncertainty plot skipped: {uncertainty_error}")
+    return written, marginals_seconds, uncertainty_error

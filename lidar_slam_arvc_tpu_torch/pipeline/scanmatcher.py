@@ -27,12 +27,21 @@ whatever the batch or chunk; the fpfh matcher's group b of pairs from
 ``torch.Generator().manual_seed(b)``, as the reference keys its group b
 with ``PRNGKey(b)``, resumed or not.
 
-Not ported yet (they raise): device meshes and multi-host runs (M8).
+Over N ranks (``IcpConfig.mesh_devices``; ``parallel/mesh.py``) the plain
+ICP methods split the pairs: every rank holds the whole scan stack and
+registers its contiguous share of the pair groups, or, with
+``shard_scans``, loads and preprocesses only its own contiguous block of
+scans and takes the next rank's first scan as a halo.  The results are
+gathered to every rank and gated there; rank 0 alone writes the files and
+the mid-stage checkpoint is off (it would be a file per rank).  The
+other methods run whole in every rank.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
+import dataclasses
 import json
 import os
 import time
@@ -49,6 +58,7 @@ from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd
 from lidar_slam_arvc_tpu_torch.io.sampling import sample_times
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.draws import seeded_generator
+from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh
 from lidar_slam_arvc_tpu_torch.pipeline.preprocess import (
     METHODS, PLANE_SEED, SPLIT_METHODS, PreprocessedScans, preprocess_batch,
 )
@@ -58,6 +68,9 @@ from lidar_slam_arvc_tpu_torch.registration.global_reg import (
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch, two_planes_pairs
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter
+
+# the methods whose pairs split over a mesh (the reference's scanmatcher.py:358-360)
+MESH_METHODS = ("icppointplane", "icppointpoint")
 
 
 def prepare_experiment_data(euroc: EurocDataset, start_index: int,
@@ -171,7 +184,7 @@ def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
 def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
                                  cfg: IcpConfig, method: str, voxel_size,
                                  device, seed: int = PLANE_SEED,
-                                 chunk_scans: int | None = None):
+                                 chunk_scans: int | None = None, first: int = 0):
     """Chunked PCD loading pipelined with device preprocessing (reference
     scanmatcher.py:128-170).
 
@@ -182,8 +195,10 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
     On a card a chunk is decoded into pinned host memory and copied with
     ``non_blocking``, so the copy does not hold the thread either.  The
     batches, the draws and so the output are those of ``load_scans`` +
-    ``preprocess_all``.  Returns (``PreprocessedScans``, overflow (N,),
-    number of files parsed in Python)."""
+    ``preprocess_all``.  ``first``: the index in the whole sequence of
+    ``scan_times[0]`` (a rank's block), which keys the draws.  Returns
+    (``PreprocessedScans``, overflow (N,), number of files parsed in
+    Python)."""
     device = torch.device(device)
     B = cfg.batch_size
     if chunk_scans is None:
@@ -215,7 +230,8 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
             pts = buf.to(device, non_blocking=True)
             mask = (torch.arange(raw, device=device)
                     < counts.to(device, non_blocking=True)[:, None])
-            _preprocess_into(outs, pts, mask, lo, cfg, method, voxel_size, seed)
+            _preprocess_into(outs, pts, mask, first + lo, cfg, method,
+                             voxel_size, seed)
     scans, overflow = _assemble(outs, cfg)
     return scans, overflow, n_python
 
@@ -347,11 +363,59 @@ def _match_checkpointed(register, n_groups: int, n_pairs: int, B: int,
     return T_out, fit, iters, delta, bad
 
 
+def sharded_rows(n_scans: int, n_ranks: int, batch: int) -> int:
+    """Scans (= pairs) per rank of the sharded stack: a batch multiple
+    with n_ranks of them covering every scan."""
+    return -(-n_scans // (n_ranks * batch)) * batch
+
+
+def _replicated_dispatch(mesh, points, mask, normals, T_seeds, params,
+                         method: str, B: int):
+    """Every rank holds the whole stack and registers its contiguous share
+    of the pair groups (the pair list padded to whole groups on every
+    rank with identity-seeded self-pairs of the last scan).  Returns the
+    results of every pair, gathered to every rank."""
+    idx_src, idx_tgt, seeds = consecutive_pairs(points.shape[0], B * mesh.size,
+                                                T_seeds)
+    lo, hi = _mesh.shard_bounds(len(idx_src), mesh)
+    si, ti, sd = (torch.from_numpy(a[lo:hi]).to(points.device)
+                  for a in (idx_src, idx_tgt, seeds))
+    return _mesh.gather_blocks(mesh, *_by_groups(hi - lo, B, _icp_register(
+        points, mask, normals, si, ti, sd, params, method)))
+
+
+def _sharded_stack_dispatch(mesh, points, mask, normals, n_scans: int,
+                            T_seeds: np.ndarray, params, method: str, B: int):
+    """Rank d holds scans [d K, (d + 1) K) of the stack padded with copies
+    of the last scan (``points`` etc. are its block) and registers the K
+    pairs whose target it holds.  The only remote scan is its last pair's
+    source, the next rank's first scan, exchanged as a halo (the cyclic
+    wrap row feeds a self-pair that is discarded).  Local source = target
+    + 1 for real pairs, self-pairs for padding.  Returns the results of
+    the D K pairs, gathered to every rank."""
+    K = sharded_rows(n_scans, mesh.size, B)
+    if points.shape[0] != K:
+        raise ValueError(f"rank {mesh.rank} holds {points.shape[0]} scans, "
+                         f"expected {K} of {n_scans} over {mesh.size} ranks")
+    pts, msk, nrm = (torch.cat([a, _mesh.halo_next(mesh, a[0])[None]])
+                     for a in (points, mask, normals))
+    glob = mesh.rank * K + np.arange(K)
+    real = glob < n_scans - 1
+    tgt = np.arange(K)
+    seeds = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    seeds[real] = np.asarray(T_seeds, dtype=np.float32)[glob[real]]
+    si, ti, sd = (torch.from_numpy(a).to(points.device)
+                  for a in (tgt + real, tgt, seeds))
+    return _mesh.gather_blocks(mesh, *_by_groups(K, B, _icp_register(
+        pts, msk, nrm, si, ti, sd, params, method)))
+
+
 def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                       cfg: IcpConfig, method: str, progress: bool = True,
                       ground_mask=None, nonground_mask=None,
                       checkpoint_path: str | None = None,
-                      checkpoint_key: int | None = None):
+                      checkpoint_key: int | None = None,
+                      mesh=None, n_scans: int | None = None):
     """Batched registration of consecutive pairs under ``method``
     (icp2planes and fpfh need the scans' ground/non-ground masks).
 
@@ -365,8 +429,15 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
     size resumes after its last group, with the transforms it holds.
     Without, every group runs before one read of the results.  Both give
     the same transforms.
+
+    ``mesh`` (a ``parallel.mesh.DataMesh``; every rank calls): the plain
+    ICP methods without a checkpoint split their pairs over the ranks, as
+    in the reference; with ``cfg.shard_scans`` the stacks are this rank's
+    block of the sharded stack (``sharded_rows`` scans) and ``n_scans``
+    the whole sequence's count.  Every rank returns the whole result.
     """
-    n_pairs = points.shape[0] - 1
+    n_scans = points.shape[0] if n_scans is None else n_scans
+    n_pairs = n_scans - 1
     B = cfg.batch_size
     params = ICPParams(max_correspondence_distance=cfg.distance_threshold,
                        max_iterations=cfg.max_iterations,
@@ -374,39 +445,51 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
     icp_method = ("point_to_point" if method == "icppointpoint"
                   else "point_to_plane")
     dev = points.device
-    idx_src, idx_tgt, seeds = consecutive_pairs(points.shape[0], B, T_seeds)
-    si, ti, sd = (torch.from_numpy(a).to(dev) for a in (idx_src, idx_tgt, seeds))
-    if method in SPLIT_METHODS and (ground_mask is None or nonground_mask is None):
-        raise ValueError(f"method {method!r} needs the ground/non-ground masks")
-    if method == "icp2planes":
-        def register(_, sl):
-            return two_planes_pairs(points, normals, ground_mask, nonground_mask,
-                                    si[sl], ti[sl], sd[sl], params)
-    elif method == "fpfh":
-        gp = GlobalRegParams(fpfh_radius=cfg.fpfh_radius, icp=params)
-        feats = scan_features(points, normals, nonground_mask, cfg.fpfh_radius, B)
+    if mesh is not None and checkpoint_path is None and method in MESH_METHODS:
+        seeds = np.asarray(T_seeds, dtype=np.float32)
+        T_all, fit, iters, delta = (
+            t.cpu().numpy()[:n_pairs] for t in
+            (_sharded_stack_dispatch(mesh, points, mask, normals, n_scans,
+                                     T_seeds, params, icp_method, B)
+             if cfg.shard_scans else
+             _replicated_dispatch(mesh, points, mask, normals, T_seeds,
+                                  params, icp_method, B)))
+        tag = (f"mesh dispatch, {mesh.size} ranks"
+               + (", sharded scan stack" if cfg.shard_scans else ""))
+    else:
+        idx_src, idx_tgt, seeds = consecutive_pairs(n_scans, B, T_seeds)
+        si, ti, sd = (torch.from_numpy(a).to(dev) for a in (idx_src, idx_tgt, seeds))
+        if method in SPLIT_METHODS and (ground_mask is None or nonground_mask is None):
+            raise ValueError(f"method {method!r} needs the ground/non-ground masks")
+        if method == "icp2planes":
+            def register(_, sl):
+                return two_planes_pairs(points, normals, ground_mask, nonground_mask,
+                                        si[sl], ti[sl], sd[sl], params)
+        elif method == "fpfh":
+            gp = GlobalRegParams(fpfh_radius=cfg.fpfh_radius, icp=params)
+            feats = scan_features(points, normals, nonground_mask, cfg.fpfh_radius, B)
 
-        def register(g, sl):
-            return fpfh_pairs(points, mask, normals, nonground_mask, feats,
-                              si[sl], ti[sl], gp, torch.Generator().manual_seed(g))
-    else:
-        register = _icp_register(points, mask, normals, si, ti, sd, params,
-                                 icp_method)
-    if checkpoint_path is not None:
-        T_all, fit, iters, delta, bad = _match_checkpointed(
-            register, len(si) // B, n_pairs, B, seeds, cfg, params,
-            checkpoint_path, checkpoint_key, progress)
-    else:
-        T_all, fit, iters, delta = _by_groups(len(si), B, register)
-        T_all = T_all.cpu().numpy().astype(np.float64)[:n_pairs]
-        fit = fit.cpu().numpy()[:n_pairs]
-        iters = iters.cpu().numpy()[:n_pairs]
-        delta = delta.cpu().numpy()[:n_pairs]
+            def register(g, sl):
+                return fpfh_pairs(points, mask, normals, nonground_mask, feats,
+                                  si[sl], ti[sl], gp, torch.Generator().manual_seed(g))
+        else:
+            register = _icp_register(points, mask, normals, si, ti, sd, params,
+                                     icp_method)
+        if checkpoint_path is not None:
+            T_all, fit, iters, delta, bad = _match_checkpointed(
+                register, len(si) // B, n_pairs, B, seeds, cfg, params,
+                checkpoint_path, checkpoint_key, progress)
+        else:
+            T_all, fit, iters, delta = (t.cpu().numpy()[:n_pairs] for t in
+                                        _by_groups(len(si), B, register))
+        tag = f"groups of {B}"
+    if checkpoint_path is None:
+        T_all = T_all.astype(np.float64)
         bad = fell_back(fit, delta, cfg.min_fitness, params)
         if bad.any():
             T_all[bad] = seeds[:n_pairs][bad].astype(np.float64)
     if progress:
-        print(f"scanmatch pairs {n_pairs}/{n_pairs} (groups of {B} on {dev})")
+        print(f"scanmatch pairs {n_pairs}/{n_pairs} ({tag} on {dev})")
     return T_all, {"fitness": fit, "iterations": iters,
                    "final_delta": delta, "fell_back": bad}
 
@@ -417,9 +500,6 @@ def _sync(device) -> None:
 
 
 def _check_supported(cfg: IcpConfig, method: str) -> None:
-    if cfg.mesh_devices != 1 or cfg.shard_scans:
-        raise NotImplementedError("device meshes are not ported yet "
-                                  "(ROADMAP M8)")
     if method not in METHODS:
         raise ValueError(f"unknown registration method {method!r}; "
                          f"expected one of {METHODS}")
@@ -441,7 +521,12 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
 
     With ``cfg.checkpoint_batches > 0`` the registration saves
     ``robot0/scanmatcher/checkpoint.npz`` after every group, resumes from
-    a matching one, and removes it when the stage completes."""
+    a matching one, and removes it when the stage completes.
+
+    ``cfg.mesh_devices`` != 1 runs the stage over the ranks of the process
+    group (every rank calls; ``parallel.mesh.resolve_mesh``'s rules), with
+    ``cfg.shard_scans`` each rank loading only its block of scans; every
+    rank returns the whole trajectory, rank 0 writes the files."""
     builds = BuildCounter()
     with builds.scope():
         return _run_scanmatcher(directory, cfg, progress, device,
@@ -460,20 +545,48 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
     if cfg is None:
         cfg = IcpConfig()
     _check_supported(cfg, method)
+    mesh = _mesh.resolve_mesh(cfg.mesh_devices)
+    group = _mesh.data_mesh()
+    if group.size > 1 and cfg.checkpoint_batches > 0:
+        # a checkpoint per rank would race on one file (the reference
+        # turns it off under several processes too)
+        cfg = dataclasses.replace(cfg, checkpoint_batches=0)
+    if method not in MESH_METHODS:
+        mesh = None           # the other methods run whole in every rank
+    shard = mesh is not None and cfg.shard_scans
 
     scan_times, _, _, odo, _ = prepare_experiment_data(
         euroc, start_index, delta_time)
     rel_odo = relative_odometry(odo)
     n = len(scan_times)
     launches0 = dict(_cuda.launch_counts)
+    collectives0 = copy.deepcopy(_mesh.collective_counts)
 
     t_load = time.time()
-    scans, overflow, n_python = load_and_preprocess_streamed(
-        euroc, scan_times, cfg, method, voxel_size, device, seed=seed)
+    if shard:
+        # this rank's block of the stack padded with copies of the last
+        # scan; the draws keep each scan's index in the whole sequence
+        K = sharded_rows(n, mesh.size, cfg.batch_size)
+        first = mesh.rank * K
+        times = np.concatenate([scan_times, np.repeat(scan_times[-1:],
+                                                      mesh.size * K - n)])
+        scans, overflow, n_python = load_and_preprocess_streamed(
+            euroc, times[first:first + K], cfg, method, voxel_size, device,
+            seed=seed, first=first)
+        overflow = _mesh.gather_rows(mesh, torch.as_tensor(overflow), mesh.size * K,
+                                     first).cpu().numpy()[:n]
+        n_python = int(_mesh.all_reduce_sum(
+            mesh, torch.tensor([n_python], device=mesh.device)).item())
+        n_local = K
+    else:
+        scans, overflow, n_python = load_and_preprocess_streamed(
+            euroc, scan_times, cfg, method, voxel_size, device, seed=seed)
+        n_local = n
     _sync(device)
     preprocess_seconds = time.time() - t_load
     if progress:
-        print(f"loaded+preprocessed {n} scans in {preprocess_seconds:.2f}s")
+        print(f"loaded+preprocessed {n_local} scans "
+              f"{'on this rank ' if shard else ''}in {preprocess_seconds:.2f}s")
 
     ck_path = ck_key = None
     if cfg.checkpoint_batches > 0:
@@ -485,7 +598,7 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
         scans.points, scans.mask, scans.normals, rel_odo, cfg, method,
         progress=progress, ground_mask=scans.ground_mask,
         nonground_mask=scans.nonground_mask, checkpoint_path=ck_path,
-        checkpoint_key=ck_key)
+        checkpoint_key=ck_key, mesh=mesh, n_scans=n)
     icp_seconds = time.time() - t_icp
     if ck_path is not None:
         # stage complete: the mid-stage checkpoint goes
@@ -514,24 +627,41 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
         "pairs_fallback_to_seed": int(stats["fell_back"].sum()),
         "pairs_resumed_from_checkpoint": int(len(rel_sm) - len(iters)),
         "pcd_files_python_parsed": int(n_python),
+        # the mesh the pairs actually split over (1: none)
+        "mesh_devices": int(mesh.size) if mesh is not None else 1,
+        "shard_scans": bool(shard),
+        "process_count": int(group.size),
+        "backend": group.backend,
+        "scans_loaded_locally": int(n_local),
         "kernel_launches": {k: v - launches0[k]
                             for k, v in _cuda.launch_counts.items()},
+        "collectives": _mesh.counts_since(collectives0),
         **builds.report(),
     }
-    euroc.save_sensor_times_as_csv(scan_times,
-                                   "/robot0/scanmatcher/lidar_times.csv")
-    euroc.save_transforms_as_csv(scan_times, rel_sm,
-                                 "/robot0/scanmatcher/scanmatcher_relative.csv")
-    euroc.save_transforms_as_csv(scan_times, T_global,
-                                 "/robot0/scanmatcher/scanmatcher_global.csv")
-    os.makedirs(f"{directory}/robot0/viz", exist_ok=True)
-    with open(f"{directory}/robot0/viz/scanmatcher_profile.json", "w") as f:
-        json.dump(profile, f, indent=2)
+
+    def write():
+        euroc.save_sensor_times_as_csv(scan_times,
+                                       "/robot0/scanmatcher/lidar_times.csv")
+        euroc.save_transforms_as_csv(scan_times, rel_sm,
+                                     "/robot0/scanmatcher/scanmatcher_relative.csv")
+        euroc.save_transforms_as_csv(scan_times, T_global,
+                                     "/robot0/scanmatcher/scanmatcher_global.csv")
+        os.makedirs(f"{directory}/robot0/viz", exist_ok=True)
+        with open(f"{directory}/robot0/viz/scanmatcher_profile.json", "w") as f:
+            json.dump(profile, f, indent=2)
+        return [f"{directory}/robot0/scanmatcher/{name}" for name in
+                ("lidar_times.csv", "scanmatcher_relative.csv",
+                 "scanmatcher_global.csv")] + [
+                     f"{directory}/robot0/viz/scanmatcher_profile.json"]
+
+    # one writer; the other ranks wait for it, as stage 2 reads the CSVs
+    written = _mesh.write_once(group, write)
     out = {"scan_times": scan_times, "relative": rel_sm,
            "global": T_global, "icp_seconds": icp_seconds,
            "frames_per_second": profile["frames_per_second"],
+           "scans_loaded_locally": int(n_local), "written": written,
            "profile": profile}
-    if return_preprocessed:
+    if return_preprocessed and not shard:
         out["preprocessed"] = {
             "points": scans.points, "mask": scans.mask, "normals": scans.normals,
             "ground_mask": scans.ground_mask,

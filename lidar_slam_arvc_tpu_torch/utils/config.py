@@ -5,8 +5,8 @@ and defaults, so ``IcpConfig(**dataclasses.asdict(jax_cfg))`` converts the
 reference's settings.  ``from_yaml`` is not ported (it needs PyYAML's
 nested mappings).  ``checkpoint_batches > 0`` turns on stage 1's
 mid-stage checkpoint, as in the reference.  ``mesh_devices`` and
-``shard_scans`` are carried for the conversion; the port raises if they
-ask for a mesh (M8).
+``shard_scans`` ask for a mesh of ranks (``parallel/mesh.py``): the
+stages then run over the ranks of the process group.
 """
 
 from __future__ import annotations

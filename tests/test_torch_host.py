@@ -40,14 +40,18 @@ def _random_transforms(rng, n):
 def test_port_imports_no_jax_pandas_yaml():
     """Importing every module of the port loads none of jax, pandas, yaml
     or the JAX package, nor matplotlib or scipy, which the port imports
-    only when it draws a figure or makes a mesh (checked in a fresh
-    interpreter)."""
+    only when it draws a figure or makes a mesh, and initialises no
+    process group and starts no process (the parallel/ modules; checked
+    in a fresh interpreter)."""
     code = (
-        "import pkgutil, sys, importlib\n"
+        "import multiprocessing, pkgutil, sys, importlib, torch\n"
         "import lidar_slam_arvc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "assert 'lidar_slam_arvc_tpu_torch.parallel.mesh' in sys.modules\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "assert not multiprocessing.active_children()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'pandas', 'yaml', 'lidar_slam_arvc_tpu',\n"
         "              'matplotlib', 'scipy'))\n"

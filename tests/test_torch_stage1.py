@@ -295,8 +295,9 @@ def test_scanmatcher_config_conversion_and_guards(dataset):
     d, _ = dataset
     cfg = IcpConfig(**dataclasses.asdict(IcpConfigRef(capacity=CAP)))
     assert cfg == IcpConfig(capacity=CAP)
-    for bad in ({"mesh_devices": 2}, {"shard_scans": True}):
-        with pytest.raises(NotImplementedError):
+    # a mesh needs a process group of that many ranks (cli --devices N)
+    for bad in ({"mesh_devices": 2}, {"mesh_devices": 4, "shard_scans": True}):
+        with pytest.raises(ValueError, match="process group has 1 rank"):
             run_scanmatcher(d, cfg=IcpConfig(**bad), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -312,8 +312,9 @@ def test_unported_paths_raise(stage1, tmp_path):
         LoopCloser(None, np.zeros((2, 8, 3)))
     d2 = str(tmp_path / "copy")
     shutil.copytree(d, d2)
-    for bad in ({"mesh_devices": 2}, {"shard_scans": True}):
-        with pytest.raises(NotImplementedError, match="M8"):
+    # a mesh needs a process group of that many ranks (cli --devices N)
+    for bad in ({"mesh_devices": 2}, {"mesh_devices": 4, "shard_scans": True}):
+        with pytest.raises(ValueError, match="process group has 1 rank"):
             run_graphslam(d2, cfg=IcpConfig(**bad), device="cpu")
     if not torch.cuda.is_available():
         for cmd in ("graph", "run"):
