@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through thirteen phases,
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through fourteen phases,
 one line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -136,7 +136,29 @@ one line each, and exits non-zero on any failure:
    both ranks, a hang past 120 s failing the phase.  Prints the
    collective calls and bytes of (b) and (d) and the phase's seconds; the
    ranks' own output goes to files.
-14. the last line: {"ok": true, "device": {...}}.
+14. the public API (run after phase 13, before phase 9), on phase 4's
+   dataset, one line per part: (a) every name of ``geom.__all__`` on the
+   card against the same call on the CPU (f32; bounds API_*_ATOL) and
+   against the float64 host mirrors of ``geom/hostmath.py`` where one
+   exists, and ``global_transforms`` of phase 4's 256 relative transforms
+   against stage 1's written float64 fold (1e-4 m, 2e-5 rad), timed with
+   CUDA events, its kernels profiled after phase 9; (b) on phase 4's first
+   batch (4 scans, cropped and voxelised on the card) ``voxel_downsample``
+   bit-equal to ``voxel_downsample_counted(...)[0]``, ``num_valid`` and
+   ``to_numpy`` against the mask, ``cloud.from_numpy`` with no device on
+   the card; (c) ``radius_accumulate`` on that batch (B=4, Q=T=8192,
+   r=0.5) on the card against the CPU: counts equal outside the f32
+   rounding band of r^2 (computed in float64), S1/S2 within 1e-5 of count
+   x max|p|^k; ``estimate_normals(impl="xla")`` against ``impl="auto"``
+   (K2) on a smooth sheet |n.n'| > 0.999 (the gate), and on phase 4's
+   pillar scans the share within 1 degree (a record); ``impl=
+   "pallas_interpret"`` raising ``ValueError``; ``radius_accumulate``'s
+   wrapper ms beside K2's at the same shape; (d) ``IcpConfig.from_yaml``
+   of a nested ``icp_parameters.yaml`` the phase writes, and phase 4's
+   global transforms through ``compat`` (unstack, relative, global,
+   stack) within 1e-9 of themselves and of the card's float64
+   ``global_transforms``, with no jax, pandas or yaml imported.
+15. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
@@ -167,9 +189,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from lidar_slam_arvc_tpu_torch.cloud import Cloud, compact_counted, crop_radius_height  # noqa: E402
+from lidar_slam_arvc_tpu_torch import compat, geom  # noqa: E402
+from lidar_slam_arvc_tpu_torch.cloud import (  # noqa: E402
+    Cloud, compact_counted, crop_radius_height, estimate_normals, from_numpy, num_valid,
+    to_numpy, voxel_downsample, voxel_downsample_counted)
 from lidar_slam_arvc_tpu_torch.cloud.cloud import pad_numpy  # noqa: E402
 from lidar_slam_arvc_tpu_torch.cloud.fpfh import compute_fpfh  # noqa: E402
+from lidar_slam_arvc_tpu_torch.geom import hostmath  # noqa: E402
+from lidar_slam_arvc_tpu_torch.geom import se3 as geom_se3  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph import PoseGraph, make_factor_data  # noqa: E402
 from lidar_slam_arvc_tpu_torch.graph import bcr, pcg, solver  # noqa: E402
@@ -182,7 +209,8 @@ from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
-    nn2_search, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain)
+    nn2_search, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain,
+    radius_accumulate)
 from lidar_slam_arvc_tpu_torch.parallel import _ranks  # noqa: E402
 from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
@@ -1904,6 +1932,420 @@ def phase_mesh(d, T_gt, smi, dev, tmp, stage2_rec):
           f"{time.time() - t_phase:.1f} s; card {smi}")
 
 
+# phase 14: the public API on the card.  Card-vs-CPU bounds of the port's
+# f32 geometry (tests/test_torch_geom_api.py holds the CPU to the JAX
+# package by the same numbers on random rotations): rotation entries,
+# quaternions and angles (modulo 2 pi) 1e-6; euler_to_quat 2e-6 (its
+# vector part scales a 1-ulp difference in R by s / sqrt(1 - s^2) near the
+# identity); so3_log 3e-6 rad times max(1, theta / sin theta) (sin theta
+# floored at 1e-3): below pi - 1e-3 the log scales the skew part by
+# theta / (2 sin theta), so the ulp by which acos and sin differ between
+# the devices grows as 1 / sin theta near pi, where phase 4's loop passes
+# (8.6e-6 rad there on an H100), and se3_log's v = V^-1 t
+# carries that error times |t|; translations 1e-6 of the array's largest
+# coordinate
+API_ROT_ATOL = 1e-6
+API_QUAT_OF_R_ATOL = 2e-6
+API_LOG_ATOL = 3e-6
+API_POS_RTOL = 1e-6
+API_ANGLES = {"normalize_angle", "rot_to_euler", "rot_to_euler_both", "quat_to_euler"}
+# phase 4's 256 relative transforms (scanmatcher_relative.csv) folded in f32
+# on the card, against a float64 sequential fold of the same transforms
+API_CHAIN_POS_ATOL = 1e-4   # m
+API_CHAIN_ROT_ATOL = 2e-5   # rad
+# ... and against the written global trajectory (scanmatcher_global.csv).
+# Stage 1 folds its ICP transforms as they come out of f32 (orthonormal to
+# ~1e-6), the relative CSV stores them as unit quaternions: the two folds
+# part by a few 1e-7 rad a step, up to ~1e-4 rad and ~1e-3 m over 256
+# steps (1.13e-4 rad and 7.08e-4 m on an H100 at 700 W)
+API_CSV_POS_ATOL = 2e-3     # m
+API_CSV_ROT_ATOL = 5e-4     # rad
+API_U32 = 2.0 ** -24        # f32 unit roundoff: the ball's rounding band
+API_MOMENT_RTOL = 1e-5      # S1/S2 where the counts agree (tests/test_torch_api.py)
+API_NORMAL_DOT = 0.999      # |n . n'| between the two normal routes on a sheet
+API_COMPAT_ATOL = 1e-9      # compat's float64 round trip
+API_ICP_YAML = """\
+filter_by_radius:
+  max_radius: 30.0
+  min_radius: 1.5
+filter_by_height:
+  max_height: 40.0
+  min_height: -2.0
+down_sample:
+  voxel_size: 0.25
+icp:
+  distance_threshold: 5
+"""
+API_ICP_FIELDS = {"max_radius": 30.0, "min_radius": 1.5, "max_height": 40.0,
+                  "min_height": -2.0, "voxel_size": 0.25, "distance_threshold": 5}
+
+
+def _api_geom_cases(rng, T, q_csv):
+    """{name: [args, ...]} over every name of ``geom.__all__``: phase 4's
+    global transforms and quaternions, and the degenerate inputs of the
+    JAX package's tests (zero quaternions, gimbal lock, near-pi rotations,
+    slerp between q and -q and between nearly equal q)."""
+    f32 = np.float32
+    T = T.astype(f32)
+    R = T[:, :3, :3]
+    q = rng.normal(size=(4, 64, 4)).astype(f32)
+    q.reshape(-1, 4)[:3] = 0.0
+    half = len(q_csv) // 2
+    q1 = q_csv[:half].astype(f32)
+    q2 = q_csv[half:2 * half].astype(f32)
+    t = rng.uniform(size=half).astype(f32)
+    abg = rng.uniform(-np.pi, np.pi, (256, 3)).astype(f32)
+    abg[:16, 1] = np.pi / 2
+    abg[16:32, 1] = -np.pi / 2
+    axes = rng.normal(size=(64, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    w_pi = np.cos(0.5 * (np.pi - rng.uniform(0, 1e-3, (64, 1))))
+    q_pi = np.concatenate([w_pi, np.sqrt(1 - w_pi ** 2) * axes], axis=1)
+    R_pi = hostmath.quat_to_rot_np(q_pi).astype(f32)
+    w = rng.normal(size=(2, 128, 3)).astype(f32)
+    w[0, :8] *= 1e-7
+    xi = rng.normal(size=(256, 6)).astype(f32)
+    pts = rng.normal(scale=10.0, size=(min(16, len(T)), 512, 3)).astype(f32)
+    rel = (np.linalg.inv(T[:-1].astype(np.float64)) @ T[1:]).astype(f32)
+    return {
+        "quat_to_rot": [(q,), (q1,)],
+        "rot_to_quat": [(R,), (R_pi,), (T,)],
+        "quat_multiply": [(q, q[::-1].copy()), (q1, q2)],
+        "quat_conjugate": [(q,)],
+        "quat_normalize": [(q,)],
+        "quat_slerp": [(q1, q2, t), (q1, -q1, t), (q1, (q1 + 1e-6).astype(f32), t),
+                       (q1, q2, 0.5)],
+        "euler_to_rot": [(abg,)],
+        "rot_to_euler": [(R,), (geom.euler_to_rot(torch.from_numpy(abg)).numpy(),)],
+        "rot_to_euler_both": [(R,), (geom.euler_to_rot(torch.from_numpy(abg)).numpy(),)],
+        "euler_to_quat": [(abg,)],
+        "quat_to_euler": [(q,), (q1,)],
+        "normalize_angle": [(rng.uniform(-20, 20, 1024).astype(f32),)],
+        "so3_exp": [(w,)],
+        "so3_log": [(R,), (R_pi,)],
+        "so3_hat": [(w,)],
+        "so3_vee": [(geom.so3_hat(torch.from_numpy(w)).numpy(),)],
+        "make_transform": [(T[:, :3, 3].copy(), R)],
+        "transform_from_quat": [(T[:, :3, 3].copy(), q_csv.astype(f32))],
+        "transform_from_euler": [(T[:, :3, 3].copy(), abg[:1].repeat(len(T), 0))],
+        "compose": [(T[:-1], rel)],
+        "inverse": [(T,)],
+        "transform_points": [(T[:len(pts)], pts)],
+        "positions": [(T,)],
+        "rotations": [(T,)],
+        "t2v": [(T,)],
+        "se3_exp": [(xi,)],
+        "se3_log": [(T,), (rel,)],
+        "relative_transforms": [(T,)],
+        "global_transforms": [(rel,), (rel, T[0], T[1])],
+        "multiply_by_transform": [(T, T[-1])],
+        "transforms_from_pose_columns": [(T[:, :3, 3].copy(), q_csv.astype(f32))],
+        "pose_columns_from_transforms": [(T,)],
+    }
+
+
+def _api_outputs(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def _api_geom_err(name, got, ref) -> float:
+    """The largest error of ``got`` against ``ref`` over the bound that
+    applies to it (<= 1 within every bound)."""
+    d = np.abs(got.astype(np.float64) - ref)
+    if name in API_ANGLES:
+        d = np.abs(np.angle(np.exp(1j * (got.astype(np.float64) - ref))))
+    pos_atol = API_POS_RTOL * max(float(np.abs(ref).max(initial=0)), 1.0)
+    if name in ("so3_log", "se3_log"):
+        w = ref[..., :3]
+        th = np.linalg.norm(w, axis=-1)
+        log_atol = API_LOG_ATOL * np.maximum(1.0, th / np.maximum(np.sin(th), 1e-3))
+        rot = (d[..., :3].max(-1) / log_atol).max(initial=0)
+        if name == "so3_log":
+            return rot
+        v = np.linalg.norm(ref[..., 3:], axis=-1)
+        return max(rot, (d[..., 3:].max(-1) / (pos_atol + 2 * log_atol * v)).max(initial=0))
+    if got.shape[-2:] == (4, 4):
+        return max(d[..., :3, :3].max(initial=0) / API_ROT_ATOL,
+                   d[..., :3, 3].max(initial=0) / pos_atol,
+                   np.inf if (d[..., 3, :] != 0).any() else 0.0)
+    if name in ("positions", "transform_points") or (
+            name == "pose_columns_from_transforms" and got.shape[-1] == 3):
+        return d.max(initial=0) / pos_atol
+    if name == "t2v":
+        ang = np.abs(np.angle(np.exp(1j * (got[..., 3:].astype(np.float64) - ref[..., 3:]))))
+        return max(d[..., :3].max() / pos_atol, ang.max() / API_ROT_ATOL)
+    atol = {"euler_to_quat": API_QUAT_OF_R_ATOL}.get(name, API_ROT_ATOL)
+    return d.max(initial=0) / atol
+
+
+def _pose_gap(A, B):
+    """(largest position gap in m, largest rotation angle in rad) between
+    two (N, 4, 4) float64 trajectories."""
+    D = np.linalg.inv(A[:, :3, :3]) @ B[:, :3, :3]
+    return (float(np.linalg.norm(A[:, :3, 3] - B[:, :3, 3], axis=-1).max()),
+            float(np.linalg.norm(geom.so3_log(torch.from_numpy(D)).numpy(), axis=-1).max()))
+
+
+def _api_geometry(d, dev):
+    """(a): every geom name on the card against the CPU and the float64
+    host mirrors; phase 4's relative transforms folded on the card."""
+    euroc = EurocDataset(d)
+    _, T_rel = euroc.read_trajectory("/robot0/scanmatcher/scanmatcher_relative.csv")
+    _, T_glob = euroc.read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
+    q_csv = hostmath.rot_to_quat_np(T_glob[:, :3, :3])
+    cases = _api_geom_cases(np.random.default_rng(14), T_glob, q_csv)
+    if sorted(cases) != sorted(geom.__all__):
+        fail(f"phase 14 (a): the cases miss {sorted(set(geom.__all__) - set(cases))}")
+    worst, calls = {}, 0
+    for name, arg_sets in cases.items():
+        fn = getattr(geom, name)
+        for args in arg_sets:
+            card = _api_outputs(fn(*[torch.from_numpy(np.array(a)).to(dev)
+                                     if isinstance(a, np.ndarray) else a for a in args]))
+            cpu = _api_outputs(fn(*[torch.from_numpy(np.array(a))
+                                    if isinstance(a, np.ndarray) else a for a in args]))
+            calls += 1
+            for g, c in zip(card, cpu):
+                if g.device.type != dev.type or g.dtype != c.dtype or g.shape != c.shape:
+                    fail(f"phase 14 (a) {name}: {g.device} {g.dtype} {tuple(g.shape)} "
+                         f"against the CPU's {c.dtype} {tuple(c.shape)}")
+                worst[name] = max(worst.get(name, 0.0),
+                                  _api_geom_err(name, g.cpu().numpy(), c.numpy()))
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        fail(f"phase 14 (a): card vs CPU beyond the bounds (error / bound): {bad}")
+    # the float64 host mirrors (geom/hostmath.py)
+    T32 = torch.from_numpy(T_glob.astype(np.float32)).to(dev)
+    q32 = torch.from_numpy(q_csv.astype(np.float32)).to(dev)
+    mirror = {}
+    R = geom.quat_to_rot(q32).cpu().numpy()
+    mirror["quat_to_rot"] = np.abs(R - hostmath.quat_to_rot_np(q_csv.astype(np.float32))).max()
+    qh = hostmath.rot_to_quat_np(T_glob.astype(np.float32))
+    # the f32 trace's rounding, up to 4 u, moves w = sqrt(trace) / 2 by
+    # u / w: near pi (phase 4's loop) w is small
+    q_atol = API_ROT_ATOL + 4 * API_U32 / np.maximum(np.abs(qh[:, :1]), 1e-3)
+
+    def q_err(qc):
+        sign = np.where(np.sum(qc * qh, axis=-1) < 0, -1.0, 1.0)[:, None]
+        return float((np.abs(qc * sign - qh) / q_atol).max()) * API_ROT_ATOL
+
+    mirror["rot_to_quat"] = q_err(geom.rot_to_quat(T32).cpu().numpy())
+    Tc = geom.transforms_from_pose_columns(T32[:, :3, 3], q32).cpu().numpy()
+    Th = hostmath.transforms_from_pose_columns_np(T_glob[:, :3, 3].astype(np.float32),
+                                                  q_csv.astype(np.float32))
+    mirror["transforms_from_pose_columns"] = np.abs(Tc - Th)[:, :3, :3].max()
+    xyz, qq = geom.pose_columns_from_transforms(T32)
+    xyz_h, _ = hostmath.pose_columns_from_transforms_np(T_glob.astype(np.float32))
+    mirror["pose_columns_from_transforms"] = max(
+        np.abs(xyz.cpu().numpy() - xyz_h).max(), q_err(qq.cpu().numpy()))
+    yaw = geom.quat_to_euler(q32)[:, 2].cpu().numpy()
+    mirror["quat_to_euler (yaw)"] = np.abs(np.angle(np.exp(
+        1j * (yaw - hostmath.quat_to_yaw_np(q_csv.astype(np.float32)))))).max()
+    if max(mirror.values()) > API_ROT_ATOL:
+        fail(f"phase 14 (a): the card against the float64 host mirrors (quaternions: "
+             f"error scaled to the bound 1e-6 + 4 u / w): {mirror}")
+    # phase 4's relative transforms folded on the card, against a float64
+    # sequential fold of the same transforms and against the written global
+    rel = torch.from_numpy(T_rel.astype(np.float32)).to(dev)
+    G = geom.global_transforms(rel).cpu().numpy().astype(np.float64)
+    F = np.empty_like(T_glob)
+    F[0] = np.eye(4)
+    for i, Tij in enumerate(T_rel):
+        F[i + 1] = F[i] @ Tij
+    (dpos, drot), (cpos, crot), (gpos, grot) = (
+        _pose_gap(a, b) for a, b in ((G, F), (G, T_glob), (F, T_glob)))
+    if G.shape != T_glob.shape or dpos > API_CHAIN_POS_ATOL or drot > API_CHAIN_ROT_ATOL \
+            or cpos > API_CSV_POS_ATOL or crot > API_CSV_ROT_ATOL:
+        fail(f"phase 14 (a): global_transforms of phase 4's {len(T_rel)} relative "
+             f"transforms is {dpos} m / {drot} rad from their float64 fold and "
+             f"{cpos} m / {crot} rad from scanmatcher_global.csv (the float64 fold "
+             f"is {gpos} m / {grot} rad from it)")
+    ms = cuda_ms(lambda: geom.global_transforms(rel), 50)
+    counts = []
+    real = geom_se3.compose
+
+    def counted(a, b):
+        counts.append(a.shape[0])
+        return real(a, b)
+
+    geom_se3.compose = counted
+    try:
+        geom.global_transforms(rel)
+    finally:
+        geom_se3.compose = real
+    profile_later(14, f"global_transforms ({len(T_rel)} relative poses)",
+                  lambda: geom.global_transforms(rel), 200)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    return (f"(a) geometry: {len(geom.__all__)} names, {calls} calls card vs CPU "
+            f"within the bounds (largest error / bound: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in top)
+            + f"); float64 host mirrors max |diff| (quaternions scaled to 1e-6 + 4 u / w) "
+            + ", ".join(f"{k} {v:.3g}" for k, v in mirror.items())
+            + f"; global_transforms of phase 4's {len(T_rel)} relative transforms (f32) "
+            f"vs their float64 sequential fold {dpos:.3g} m, {drot:.3g} rad (bounds "
+            f"{API_CHAIN_POS_ATOL}, {API_CHAIN_ROT_ATOL}), vs scanmatcher_global.csv "
+            f"{cpos:.3g} m, {crot:.3g} rad (bounds {API_CSV_POS_ATOL}, "
+            f"{API_CSV_ROT_ATOL}; the float64 fold itself is {gpos:.3g} m, {grot:.3g} "
+            f"rad from it); {ms:.4f} ms a call (CUDA events, 50 calls), "
+            f"{len(counts)} batched compose steps")
+
+
+def _api_cloud(d, dev):
+    """(b): phase 4's first batch, cropped and voxelised on the card."""
+    euroc = EurocDataset(d)
+    prm = euroc.read_scanmatcher_parameters()
+    cfg = IcpConfig(capacity=CAPACITY)
+    scan_times, _, _, _, _ = sm.prepare_experiment_data(euroc, 0, prm["delta_time"])
+    raw_pts, raw_mask = sm.load_scans(euroc, scan_times[:cfg.batch_size], cfg.raw_capacity)
+    c = Cloud(torch.from_numpy(raw_pts).to(dev), torch.from_numpy(raw_mask).to(dev))
+    c = crop_radius_height(c, cfg.min_radius, cfg.max_radius, cfg.min_height,
+                           cfg.max_height)
+    vd = voxel_downsample(c, VOXEL, out_capacity=CAPACITY)
+    vc = voxel_downsample_counted(c, VOXEL, out_capacity=CAPACITY)[0]
+    if not (torch.equal(vd.points, vc.points) and torch.equal(vd.mask, vc.mask)):
+        fail("phase 14 (b): voxel_downsample differs from voxel_downsample_counted")
+    n = num_valid(vd)
+    if n.dtype != torch.int32 or not torch.equal(n, vd.mask.sum(-1).to(torch.int32)):
+        fail(f"phase 14 (b): num_valid {n} against the mask's sums")
+    rows = to_numpy(vd)
+    pts, mask = vd.points.cpu().numpy(), vd.mask.cpu().numpy()
+    if len(rows) != len(pts) or not all(np.array_equal(r, p[m])
+                                        for r, p, m in zip(rows, pts, mask)):
+        fail("phase 14 (b): to_numpy differs from the masked rows")
+    one = from_numpy(raw_pts[0][raw_mask[0]], CAPACITY)
+    if one.points.device.type != "cuda" or one.mask.device.type != "cuda":
+        fail(f"phase 14 (b): from_numpy with no device gave {one.points.device}")
+    return vd, (f"(b) cloud helpers on phase 4's first batch ({len(rows)} scans "
+                f"cropped and voxelised at {VOXEL} m, capacity {CAPACITY}, "
+                f"{[int(x) for x in n]} valid): voxel_downsample bit-equal to "
+                f"voxel_downsample_counted[0], num_valid int32 = the mask's sums, "
+                f"to_numpy = the masked rows, from_numpy with no device on "
+                f"{one.points.device}")
+
+
+def _api_band(q, t, tmask, r):
+    """Per query: the valid targets whose exact (float64) d2 lies within the
+    f32 rounding band of r^2, 8 u (|q|^2 + |t|^2 + r^2), where the matmul
+    form may count them on either side."""
+    r2 = float(np.float32(r) * np.float32(r))
+    out = []
+    for b in range(q.shape[0]):
+        q64, t64 = q[b].double(), t[b].double()
+        t2 = (t64 * t64).sum(-1)
+        rows = []
+        for q0 in range(0, q64.shape[0], 1024):
+            qc = q64[q0:q0 + 1024]
+            d2 = ((qc[:, None, :] - t64[None, :, :]) ** 2).sum(-1)
+            scale = (qc * qc).sum(-1)[:, None] + t2[None, :] + r2
+            rows.append(((d2 - r2).abs() <= 8 * API_U32 * scale) & tmask[b][None, :])
+        out.append(torch.cat(rows).sum(-1))
+    return torch.stack(out)
+
+
+def _api_normals(vd, dev):
+    """(c): raw-origin moments and the normals' two routes."""
+    r = RADIUS
+    args = (vd.points, vd.points, vd.mask, r)
+    card = radius_accumulate(*args)
+    cpu = radius_accumulate(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    band = _api_band(vd.points, vd.points, vd.mask, r).cpu()
+    cnt, cnt_cpu = card[0].cpu(), cpu[0]
+    valid = vd.mask.cpu()
+    clear = valid & (band == 0)
+    if not torch.equal(cnt[clear], cnt_cpu[clear]):
+        fail(f"phase 14 (c): radius_accumulate counts differ from the CPU's in "
+             f"{int((cnt[clear] != cnt_cpu[clear]).sum())} queries outside the band")
+    if bool(((cnt - cnt_cpu).abs() > band)[valid].any()):
+        fail("phase 14 (c): a count differs from the CPU's by more than its band targets")
+    same = valid & (cnt == cnt_cpu)
+    pmax = float(vd.points[vd.mask].abs().max())
+    err = []
+    for k in (1, 2):
+        dk = (card[k].cpu() - cpu[k]).abs()[same]
+        tol = API_MOMENT_RTOL * cnt[same][:, None] * pmax ** k + 1e-6
+        if bool((dk > tol).any()):
+            fail(f"phase 14 (c): S{k} beyond {API_MOMENT_RTOL} of count x max|p|^{k} "
+                 f"(max |diff| {float(dk.max())})")
+        err.append(float(dk.max()))
+    # the gate: the two routes on a smooth sheet
+    rng = np.random.default_rng(15)
+    sheet = rng.uniform(-10, 10, size=(CAPACITY, 3)).astype(np.float32)
+    sheet[:, 2] = 0.3 * np.sin(sheet[:, 0])
+    c = from_numpy(sheet, CAPACITY)
+    n_xla = estimate_normals(c, 0.8, impl="xla").normals
+    n_k2 = estimate_normals(c, 0.8, impl="auto").normals
+    dots = (n_xla * n_k2).sum(-1).abs()[c.mask]
+    if float(dots.min()) <= API_NORMAL_DOT:
+        fail(f"phase 14 (c): impl='xla' vs 'auto' on a smooth sheet: min |n.n'| "
+             f"{float(dots.min())}")
+    # a record: phase 4's pillar scans, where thin pillars are ill-conditioned
+    a = estimate_normals(vd, r, impl="xla").normals
+    b = estimate_normals(vd, r, impl="auto").normals
+    within = float(((a * b).sum(-1).abs()[vd.mask] > np.cos(np.deg2rad(1.0))).float().mean())
+    try:
+        estimate_normals(vd, r, impl="pallas_interpret")
+        fail("phase 14 (c): impl='pallas_interpret' did not raise")
+    except ValueError:
+        pass
+    ra_ms = cuda_ms(lambda: radius_accumulate(*args), 10)
+    k2_ms = cuda_ms(lambda: ball_moments(*args, query_mask=vd.mask), 20)
+    B, Q = vd.mask.shape
+    tile = B * 1024 * 2048 * 4
+    return (f"(c) raw-moment normals, B={B} Q=T={Q} r={r}: radius_accumulate card vs "
+            f"CPU counts equal in {int(clear.sum())} valid queries outside the rounding "
+            f"band ({int((valid & (band > 0)).sum())} in it, "
+            f"{int((valid & (cnt != cnt_cpu)).sum())} of them differing), S1/S2 max "
+            f"|diff| {err[0]:.3g} / {err[1]:.3g} (within {API_MOMENT_RTOL} of count x "
+            f"max|p|^k); smooth sheet ({CAPACITY} points, r=0.8) impl xla vs auto "
+            f"(K2) min |n.n'| {float(dots.min()):.6f} (gate > {API_NORMAL_DOT}); "
+            f"phase 4's pillar scans: {within:.4f} of the valid points within 1 deg "
+            f"(a record); pallas_interpret raises ValueError; wrapper ms "
+            f"radius_accumulate {ra_ms:.4f} vs K2 ball_moments {k2_ms:.4f} at the "
+            f"same shape (CUDA events), weight tile {tile} B (B x 1024 x 2048 f32)")
+
+
+def _api_config_compat(d, tmp, dev):
+    """(d): IcpConfig.from_yaml and compat's trajectory round trip."""
+    path = os.path.join(tmp, "icp_parameters.yaml")
+    with open(path, "w") as f:
+        f.write(API_ICP_YAML)
+    cfg = IcpConfig.from_yaml(path)
+    got = {k: getattr(cfg, k) for k in API_ICP_FIELDS}
+    if got != API_ICP_FIELDS or IcpConfig.from_yaml(path, capacity=4).capacity != 4:
+        fail(f"phase 14 (d): IcpConfig.from_yaml gave {got}")
+    _, T_glob = EurocDataset(d).read_trajectory("/robot0/scanmatcher/scanmatcher_global.csv")
+    hms = compat.unstack(T_glob)
+    back = compat.stack(compat.compute_global_transformations(
+        compat.compute_relative_transformations(hms), hms[0]))
+    T64 = torch.from_numpy(T_glob).to(dev)
+    card = geom.global_transforms(geom.relative_transforms(T64), T64[0]).cpu().numpy()
+    e_in, e_card = np.abs(back - T_glob).max(), np.abs(back - card).max()
+    if back.shape != T_glob.shape or e_in > API_COMPAT_ATOL or e_card > API_COMPAT_ATOL:
+        fail(f"phase 14 (d): compat's round trip is {e_in} from phase 4's transforms "
+             f"and {e_card} from the card's float64 fold")
+    gone = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pandas", "yaml"))
+    if gone:
+        fail(f"phase 14 (d): {gone} imported")
+    return (f"(d) IcpConfig.from_yaml: the 6 fields of a nested icp_parameters.yaml and "
+            f"an override; compat unstack -> relative -> global -> stack of phase 4's "
+            f"{len(T_glob)} transforms: {e_in:.3g} from them, {e_card:.3g} from the "
+            f"card's float64 global_transforms (bound {API_COMPAT_ATOL}), with no jax, "
+            f"pandas or yaml imported")
+
+
+def phase_api(d, smi, dev, tmp):
+    """Phase 14: the port's public API on the card, on phase 4's dataset."""
+    t0 = time.time()
+    a = _api_geometry(d, dev)
+    vd, b = _api_cloud(d, dev)
+    c = _api_normals(vd, dev)
+    dd = _api_config_compat(d, tmp, dev)
+    print(f"phase 14 public API: {a}")
+    print(f"phase 14 public API: {b}")
+    print(f"phase 14 public API: {c}")
+    print(f"phase 14 public API: {dd}; phase {time.time() - t0:.1f} s; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1923,6 +2365,7 @@ def main():
         phase_fpfh(tmp, smi, dev)
         phase_host(d, T_gt, smi, dev, tmp)
         phase_mesh(d, T_gt, smi, dev, tmp, stage2_rec)
+        phase_api(d, smi, dev, tmp)
     phase_solvers(dev)
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1

@@ -22,9 +22,11 @@ class Cloud:
     normals: torch.Tensor | None = None
 
 
-def from_arrays(points, mask, normals=None, device="cpu") -> Cloud:
-    """A Cloud from host arrays, e.g. the JAX package's clouds or
-    ``PreprocessedScans`` fields passed through ``np.asarray``."""
+def from_arrays(points, mask, normals=None, device="cuda") -> Cloud:
+    """A Cloud on ``device`` from host arrays, e.g. the JAX package's clouds
+    or ``PreprocessedScans`` fields passed through ``np.asarray``.  The
+    default is the card, as for every entry point of the port: with no
+    card that raises; pass ``device="cpu"`` for the plain versions."""
     def t(a, dtype):
         # np.array copies: arrays handed over from JAX are read-only
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
@@ -50,10 +52,31 @@ def pad_numpy(points: np.ndarray, capacity: int):
     return buf, mask
 
 
-def from_numpy(points: np.ndarray, capacity: int, device="cpu") -> Cloud:
-    """Pad/truncate an (N, 3) host array into a fixed-capacity Cloud."""
+def from_numpy(points: np.ndarray, capacity: int, device="cuda") -> Cloud:
+    """Pad/truncate an (N, 3) host array into a fixed-capacity Cloud on
+    ``device`` (the card unless the caller names another)."""
     buf, mask = pad_numpy(points, capacity)
     return from_arrays(buf, mask, device=device)
+
+
+def to_numpy(cloud: Cloud):
+    """Valid points as a host (N, 3) array; for a batched (B, CAP) cloud, a
+    list of B such arrays, one per scan (their N differ).  More leading
+    dimensions raise ``ValueError``."""
+    pts = cloud.points.detach().cpu().numpy()
+    mask = cloud.mask.detach().cpu().numpy()
+    if mask.ndim == 1:
+        return pts[mask]
+    if mask.ndim == 2:
+        return [p[m] for p, m in zip(pts, mask)]
+    raise ValueError(f"to_numpy: a cloud of mask shape {tuple(mask.shape)}; "
+                     "expected (CAP,) or (B, CAP)")
+
+
+def num_valid(cloud: Cloud) -> torch.Tensor:
+    """Valid points per cloud: the int32 sum of the mask over its last axis
+    (a 0-d tensor for one cloud, (B,) for a batch)."""
+    return torch.sum(cloud.mask, dim=-1, dtype=torch.int32)
 
 
 def crop_radius_height(cloud: Cloud, min_radius: float, max_radius: float,

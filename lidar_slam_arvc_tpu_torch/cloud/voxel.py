@@ -102,3 +102,9 @@ def voxel_downsample_counted(cloud: Cloud, voxel_size: float,
     if not batched:
         return Cloud(out.points[0], out.mask[0]), n_voxels[0]
     return out, n_voxels
+
+
+def voxel_downsample(cloud: Cloud, voxel_size: float,
+                     out_capacity: int | None = None) -> Cloud:
+    """``voxel_downsample_counted`` without the occupancy count."""
+    return voxel_downsample_counted(cloud, voxel_size, out_capacity)[0]

@@ -1,52 +1,23 @@
-"""Batched SO(3)/SE(3) algebra on tensors.
+"""Batched SE(3) transforms and trajectory algebra on tensors.
 
-Counterpart of ``lidar_slam_arvc_tpu/geom/se3.py`` (and of the parts of
-``rotations.py`` it needs; the SO(3) log and Euler angles are in
-``geom/rotations.py``).  Every 3x3/4x4 product is written out
-elementwise, so no matmul runs and TF32 cannot touch the geometry — the
-counterpart of the reference's ``Precision.HIGHEST`` rule.  Tangent
-convention ``xi = [w(3), v(3)]``; transforms are (..., 4, 4).
+Counterpart of ``lidar_slam_arvc_tpu/geom/se3.py``, name for name (the
+SO(3) primitives are in ``geom/rotations.py``).  Every 3x3/4x4 product is
+written out elementwise, so no matmul runs and TF32 cannot touch the
+geometry — the counterpart of the reference's ``Precision.HIGHEST`` rule.
+Tangent convention ``xi = [w(3), v(3)]``; transforms are (..., 4, 4),
+trajectories stacked (N, 4, 4).  ``global_transforms`` folds a trajectory
+as a log-depth prefix product of batched ``compose`` calls, where the
+reference runs ``lax.associative_scan``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lidar_slam_arvc_tpu_torch.geom.rotations import euler_to_rot, rot_to_euler, so3_log
-
-
-def _eye3(like: torch.Tensor) -> torch.Tensor:
-    return torch.eye(3, dtype=like.dtype, device=like.device)
-
-
-def so3_hat(w: torch.Tensor) -> torch.Tensor:
-    """(..., 3) axis-angle vector(s) -> (..., 3, 3) skew matrices."""
-    wx, wy, wz = w.unbind(-1)
-    z = torch.zeros_like(wx)
-    return torch.stack([
-        torch.stack([z, -wz, wy], dim=-1),
-        torch.stack([wz, z, -wx], dim=-1),
-        torch.stack([-wy, wx, z], dim=-1),
-    ], dim=-2)
-
-
-def _hat_sq(w: torch.Tensor) -> torch.Tensor:
-    """hat(w) @ hat(w) via the closed form w w^T - (w.w) I."""
-    outer = w[..., :, None] * w[..., None, :]
-    theta2 = torch.sum(w * w, dim=-1)
-    return outer - theta2[..., None, None] * _eye3(w)
-
-
-def so3_exp(w: torch.Tensor) -> torch.Tensor:
-    """Rodrigues exponential with a Taylor branch near zero."""
-    theta2 = torch.sum(w * w, dim=-1)
-    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
-    small = theta2 < 1e-12
-    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    B = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=1e-24))
-    return (_eye3(w) + A[..., None, None] * so3_hat(w)
-            + B[..., None, None] * _hat_sq(w))
+from lidar_slam_arvc_tpu_torch.geom.rotations import (  # noqa: F401 (re-exported)
+    _eye3, _hat_sq, euler_to_rot, quat_to_rot, rot_to_euler, rot_to_quat, so3_exp,
+    so3_hat, so3_log,
+)
 
 
 def _V_matrix(w: torch.Tensor) -> torch.Tensor:
@@ -93,6 +64,11 @@ def make_transform(position: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def transform_from_quat(position: torch.Tensor, q_wxyz: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) from a position and a wxyz quaternion."""
+    return make_transform(position, quat_to_rot(q_wxyz))
+
+
 def transform_from_euler(position: torch.Tensor, abg: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) from a position and XYZ-mobile Euler angles."""
     return make_transform(position, euler_to_rot(abg))
@@ -135,3 +111,63 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     R = T[..., None, :3, :3]
     t = T[..., None, :3, 3]
     return matvec3(R, points) + t
+
+
+def positions(T: torch.Tensor) -> torch.Tensor:
+    """(..., 3) translation parts."""
+    return T[..., :3, 3]
+
+
+def rotations(T: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation parts."""
+    return T[..., :3, :3]
+
+
+def relative_transforms(global_T: torch.Tensor) -> torch.Tensor:
+    """(N, 4, 4) global -> (N-1, 4, 4) relative: T_i^-1 @ T_{i+1}."""
+    return compose(inverse(global_T[:-1]), global_T[1:])
+
+
+def _prefix_products(chain: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products P_k = chain_0 @ ... @ chain_k of an
+    (N, 4, 4) chain, each product in that left-to-right order.
+
+    Hillis-Steele: step d composes every P_k (k >= d) with the prefix d
+    rows back, so ceil(log2 N) batched ``compose`` calls run, not N."""
+    out = chain
+    d = 1
+    while d < out.shape[0]:
+        out = torch.cat([out[:d], compose(out[:-d], out[d:])], dim=0)
+        d *= 2
+    return out
+
+
+def global_transforms(relative_T: torch.Tensor, T0: torch.Tensor | None = None,
+                      Trobot_gps: torch.Tensor | None = None) -> torch.Tensor:
+    """(N-1, 4, 4) relative -> (N, 4, 4) global poses starting at ``T0``
+    (identity by default), each right-multiplied by ``Trobot_gps`` when
+    given.  A log-depth prefix product (``_prefix_products``): f32 rounding
+    follows another order than a sequential fold or the reference's
+    ``associative_scan``."""
+    if T0 is None:
+        T0 = torch.eye(4, dtype=relative_T.dtype, device=relative_T.device)
+    out = _prefix_products(torch.cat([T0[None], relative_T], dim=0))
+    if Trobot_gps is not None:
+        out = multiply_by_transform(out, Trobot_gps)
+    return out
+
+
+def multiply_by_transform(transforms: torch.Tensor, Trel: torch.Tensor) -> torch.Tensor:
+    """Right-multiply every pose by ``Trel``."""
+    return compose(transforms, Trel.expand(transforms.shape))
+
+
+def transforms_from_pose_columns(xyz: torch.Tensor, q_wxyz: torch.Tensor) -> torch.Tensor:
+    """Stacked (N, 4, 4) from position columns and wxyz quaternion columns
+    (a trajectory CSV's [x y z] and [qw qx qy qz])."""
+    return transform_from_quat(xyz, q_wxyz)
+
+
+def pose_columns_from_transforms(T: torch.Tensor):
+    """(N, 4, 4) -> (xyz (N, 3), q_wxyz (N, 4))."""
+    return positions(T), rot_to_quat(T[..., :3, :3])

@@ -76,6 +76,28 @@ class FactorData(NamedTuple):
     grad_ix: torch.Tensor     # (N, Dg) gradient contributions of each pose
 
 
+def make_factor_buffers(n_between: int, n_gps: int, n_prior: int) -> dict:
+    """Empty host factor buffers in the reference's slot layout: ``{field:
+    numpy array}`` for each of ``FACTOR_FIELDS``, every weight zero, every
+    transform the identity (float32 values, int32 indices, as the JAX
+    package's ``make_factor_buffers``).  ``make_factor_data(capacity,
+    device, **buffers)`` takes them; with every weight zero it holds no
+    factor."""
+    eye = np.eye(4, dtype=np.float32)
+    return dict(
+        bt_i=np.zeros(n_between, dtype=np.int32),
+        bt_j=np.zeros(n_between, dtype=np.int32),
+        bt_T=np.tile(eye, (n_between, 1, 1)),
+        bt_winv=np.zeros((n_between, 6), dtype=np.float32),
+        gps_i=np.zeros(n_gps, dtype=np.int32),
+        gps_z=np.zeros((n_gps, 3), dtype=np.float32),
+        gps_winv=np.zeros((n_gps, 3), dtype=np.float32),
+        pr_i=np.zeros(n_prior, dtype=np.int32),
+        pr_T=np.tile(eye, (n_prior, 1, 1)),
+        pr_winv=np.zeros((n_prior, 6), dtype=np.float32),
+    )
+
+
 def _gather_table(keys: np.ndarray, n_rows: int) -> np.ndarray:
     """(n_rows, D) table whose row r lists, in increasing order, the
     positions k with keys[k] == r, padded with len(keys)."""

@@ -25,6 +25,7 @@ from lidar_slam_arvc_tpu_torch.geom.se3 import (
     compose, inverse, se3_exp, se3_log, so3_hat,
 )
 from lidar_slam_arvc_tpu_torch.graph.factors import FactorData
+from lidar_slam_arvc_tpu_torch.ops.nn import require_f32_matmul
 
 
 def _mv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -39,13 +40,6 @@ def inv_or_nan(A: torch.Tensor) -> torch.Tensor:
     and a NaN preconditioner makes the LM reject the step."""
     inv, info = torch.linalg.inv_ex(A)
     return torch.where((info == 0)[..., None, None], inv, torch.nan)
-
-
-def _require_f32_matmul(t: torch.Tensor) -> None:
-    """Raise if matmuls on ``t``'s device may round their inputs to TF32."""
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the pose-graph solvers need f32 matmuls; set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
 def _adjoint(T: torch.Tensor) -> torch.Tensor:
@@ -110,7 +104,7 @@ def linearize(poses: torch.Tensor, f: FactorData, n_active: int) -> Linearized:
     """The blocks of H and the gradient at ``poses``.  Poses at index >=
     n_active are inactive: identity diagonal, zero gradient, so the solve
     stays regular and leaves them fixed."""
-    _require_f32_matmul(poses)
+    require_f32_matmul(poses, "the pose-graph solvers")
     r, A, B = _between_residuals(poses, f)
     AtW = _weighted(A, f.bt_winv ** 2)
     BtW = _weighted(B, f.bt_winv ** 2)

@@ -1,4 +1,4 @@
-"""CSV tables and the flat YAML subset, in numpy and the standard library.
+"""CSV tables and a YAML subset, in numpy and the standard library.
 
 The JAX package reads and writes these files with pandas and PyYAML; the
 port runs where neither is installed, so it carries its own:
@@ -9,10 +9,12 @@ port runs where neither is installed, so it carries its own:
   ``float_format``), minimal quoting, ``\\n`` line ends.
 * ``read_csv`` returns ``{column: ndarray}``: int64 where every cell is an
   integer, float64 where every cell is a number, str otherwise.
-* ``load_yaml``/``dump_yaml`` handle the flat ``key: value`` mappings the
-  dataset's parameter files use (numbers, strings, ``null``, booleans, and
-  block lists of scalars), with PyYAML's ``safe_load``/``safe_dump``
-  resolution and formatting for those values.
+* ``load_yaml`` reads block mappings, nested by indentation, whose leaves
+  are scalars (numbers, strings, ``null``, booleans) or block lists of
+  scalars: the dataset's flat parameter files and the reference's nested
+  ``icp_parameters.yaml``; ``dump_yaml`` writes the flat ones.  Both follow
+  PyYAML's ``safe_load``/``safe_dump`` resolution and formatting for those
+  values.
 """
 
 from __future__ import annotations
@@ -128,34 +130,71 @@ def _strip_comment(line: str) -> str:
     return line
 
 
-def load_yaml(text: str) -> dict:
-    """Parse a flat ``key: value`` mapping, with block lists of scalars."""
-    out: dict = {}
-    key = None
+def _yaml_lines(text: str) -> list[tuple[int, str, str]]:
+    """(indent, content, raw line) of each line that holds something."""
+    out = []
     for raw in text.splitlines():
         line = _strip_comment(raw).rstrip()
         if not line.strip() or line.strip() in ("---", "..."):
             continue
-        stripped = line.lstrip()
-        if stripped.startswith("- ") or stripped == "-":
-            if key is None or not isinstance(out.get(key), list):
-                raise ValueError(f"YAML subset: list item outside a list: {raw!r}")
-            out[key].append(_scalar(stripped[1:]))
-            continue
-        if line[0].isspace():
-            raise ValueError(f"YAML subset: nested mappings are not supported: {raw!r}")
-        k, sep, v = line.partition(":")
+        if "\t" in line[:len(line) - len(line.lstrip())]:
+            raise ValueError(f"YAML subset: tab in indentation: {raw!r}")
+        out.append((len(line) - len(line.lstrip()), line.strip(), raw))
+    return out
+
+
+def _is_item(content: str) -> bool:
+    return content == "-" or content.startswith("- ")
+
+
+def _yaml_list(lines, i: int, indent: int):
+    """The block list of scalars whose items start at ``indent``."""
+    items = []
+    while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
+        items.append(_scalar(lines[i][1][1:]))
+        i += 1
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"YAML subset: only lists of scalars: {lines[i][2]!r}")
+    return items, i
+
+
+def _yaml_mapping(lines, i: int, indent: int):
+    """The block mapping whose keys start at ``indent``; returns it and the
+    index of the first line after it."""
+    out: dict = {}
+    while i < len(lines):
+        ind, content, raw = lines[i]
+        if ind < indent:
+            break
+        if ind > indent or _is_item(content):
+            raise ValueError(f"YAML subset: unexpected line: {raw!r}")
+        k, sep, v = content.partition(":")
         if not sep:
             raise ValueError(f"YAML subset: expected 'key: value': {raw!r}")
-        key = k.strip()
+        i += 1
         if v.strip():
-            out[key] = _scalar(v)
-        else:
-            # a bare key opens a block list (or is null if none follows)
-            out[key] = []
-    for k, v in out.items():
-        if isinstance(v, list) and not v:
-            out[k] = None
+            out[k.strip()] = _scalar(v)
+            continue
+        # a bare key opens a block list (at its own indent or deeper), a
+        # nested mapping (deeper), or is null if neither follows
+        value = None
+        if i < len(lines) and _is_item(lines[i][1]) and lines[i][0] >= indent:
+            value, i = _yaml_list(lines, i, lines[i][0])
+        elif i < len(lines) and lines[i][0] > indent:
+            value, i = _yaml_mapping(lines, i, lines[i][0])
+        out[k.strip()] = value
+    return out, i
+
+
+def load_yaml(text: str) -> dict:
+    """Parse a block mapping, nested by indentation, whose leaves are
+    scalars or block lists of scalars."""
+    lines = _yaml_lines(text)
+    if lines and _is_item(lines[0][1]):
+        raise ValueError(f"YAML subset: list item outside a list: {lines[0][2]!r}")
+    out, i = _yaml_mapping(lines, 0, lines[0][0] if lines else 0)
+    if i < len(lines):
+        raise ValueError(f"YAML subset: unexpected line: {lines[i][2]!r}")
     return out
 
 

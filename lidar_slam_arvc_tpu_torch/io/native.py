@@ -99,6 +99,17 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """True when the parser builds and loads here.  Unlike the reference,
+    which then falls back to Python, a failed build still raises where the
+    parser is used."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def lzf_decompress(data: bytes, expected_length: int) -> bytes:
     """libLZF decompression of a PCL ``binary_compressed`` payload."""
     out = np.empty(expected_length, dtype=np.uint8)

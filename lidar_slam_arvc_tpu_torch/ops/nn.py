@@ -23,8 +23,9 @@ impl        TPU kernel                        d2                 masked d2
 winner's point and normal instead of its index.  ``nn_search_xla`` and
 ``nn2_search`` are the counterparts of ``lidar_slam_arvc_tpu/ops/nn.py``'s
 ``nn_search`` and ``nn2_search``, the JAX package's matmul-form sweeps for
-points and for any feature width (the 33-D FPFH features): plain PyTorch
-there and here, no kernel.
+points and for any feature width (the 33-D FPFH features), and
+``radius_accumulate`` (raw-origin ball moments) is its namesake: plain
+PyTorch there and here, no kernel.
 
 ``nn_search`` and ``nn_search_vals`` launch ``csrc/nn_sweep.cu`` and
 ``csrc/nn_sweep_vals.cu`` for CUDA tensors, one kernel per call (see
@@ -218,6 +219,65 @@ def nn_search_vals(src: torch.Tensor, tgt: torch.Tensor,
     _cuda.check(err, "nn_sweep_vals")
     _cuda.launch_counts["nn_sweep_vals"] += 1
     return _unbatched((d2, q, n), batched)
+
+
+def require_f32_matmul(t: torch.Tensor, who: str) -> None:
+    """Raise if matmuls on ``t``'s device may round their inputs to TF32:
+    ``torch.backends.cuda.matmul.allow_tf32``, which
+    ``torch.set_float32_matmul_precision("high")`` or ``("medium")`` also
+    switches on.  ``who`` names the caller in the message."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{who} need f32 matmuls; set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def radius_accumulate(query: torch.Tensor, tgt: torch.Tensor,
+                      tgt_mask: torch.Tensor, radius: float,
+                      query_block: int = 1024, tgt_block: int = 2048):
+    """Raw-origin ball moments of every query point: (count (..., Q),
+    S1 (..., Q, 3), S2 (..., Q, 6)), the sums of p and of the upper
+    triangle of p p^T (xx, xy, xz, yy, yz, zz) over the valid targets p
+    within ``radius`` of the query.
+
+    Counterpart of the JAX package's ``ops/nn.py::radius_accumulate``, the
+    moments of ``estimate_normals(impl="xla")``: d2 = (|q|^2 + |t|^2) -
+    2 q.t with 1e12 added to |t|^2 of a masked target, and the weights w =
+    [d2 <= r^2] summed and multiplied into the targets' features, in
+    ``query_block`` x ``tgt_block`` tiles (1024 x 2048 f32 weights: 8 MB a
+    cloud).  Plain PyTorch on every device: the reference computes this
+    with XLA matmuls, outside any Pallas kernel.  The matmuls must stay
+    f32: the covariance S2/n - m m^T of raw moments cancels
+    catastrophically, so a CUDA call with TF32 matmuls on raises
+    (``require_f32_matmul``).  Shapes: query (..., Q, 3), tgt (..., T, 3),
+    tgt_mask (..., T), with the same leading dimensions."""
+    require_f32_matmul(query, "radius_accumulate")
+    lead = query.shape[:-2]
+    q = query.reshape((-1,) + query.shape[-2:])
+    t = tgt.reshape((-1,) + tgt.shape[-2:])
+    m = tgt_mask.reshape((-1, tgt_mask.shape[-1]))
+    r = torch.tensor(radius, dtype=q.dtype, device=q.device)
+    r2 = r * r
+    t2 = torch.sum(t * t, dim=-1) + torch.where(m, 0.0, BIG).to(q.dtype)
+    x, y, z = t.unbind(-1)
+    feats = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z],
+                        dim=-1)                                  # (B, T, 9)
+    counts, moments = [], []
+    for q0 in range(0, q.shape[1], query_block):
+        qc = q[:, q0:q0 + query_block]
+        s2 = torch.sum(qc * qc, dim=-1)[..., None]
+        count = torch.zeros(qc.shape[:2], dtype=q.dtype, device=q.device)
+        mom = torch.zeros(qc.shape[:2] + (9,), dtype=q.dtype, device=q.device)
+        for t0 in range(0, t.shape[1], tgt_block):
+            cross = torch.matmul(qc, t[:, t0:t0 + tgt_block].transpose(1, 2))
+            d2 = (s2 + t2[:, None, t0:t0 + tgt_block]) - 2.0 * cross
+            w = (d2 <= r2).to(q.dtype)
+            count = count + torch.sum(w, dim=-1)
+            mom = mom + torch.matmul(w, feats[:, t0:t0 + tgt_block])
+        counts.append(count)
+        moments.append(mom)
+    count = torch.cat(counts, dim=1).reshape(lead + (q.shape[1],))
+    mom = torch.cat(moments, dim=1).reshape(lead + (q.shape[1], 9))
+    return count, mom[..., :3], mom[..., 3:]
 
 
 @contextlib.contextmanager

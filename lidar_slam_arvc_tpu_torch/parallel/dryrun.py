@@ -24,7 +24,7 @@ from lidar_slam_arvc_tpu_torch.cloud import (
 from lidar_slam_arvc_tpu_torch.utils import synthetic
 
 
-def tiny_pair_batch(batch: int, cap: int, seed: int = 0, device="cpu"):
+def tiny_pair_batch(batch: int, cap: int, seed: int = 0, device="cuda"):
     """Small synthetic preprocessed scan-pair batch: (src points, src
     masks, tgt points, tgt masks, tgt normals, seeds) tensors on
     ``device`` (the reference's ``_tiny_pair_batch``, same draws)."""

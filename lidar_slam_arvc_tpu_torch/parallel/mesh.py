@@ -312,7 +312,7 @@ class RankError(RuntimeError):
             f"--- rank {r} ---\n{e}" for r, e in sorted(errors.items())))
 
 
-def launch(n: int, fn, *args, device="cpu", timeout_s: float = DEFAULT_TIMEOUT_S,
+def launch(n: int, fn, *args, device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S,
            log_dir: str | None = None) -> list:
     """Run ``fn(*args)`` in n new ranks of one group on ``device`` and
     return their results in rank order.  ``fn`` must be importable (the

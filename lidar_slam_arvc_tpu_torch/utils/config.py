@@ -2,8 +2,9 @@
 
 Counterpart of ``lidar_slam_arvc_tpu/utils/config.py``: the same fields
 and defaults, so ``IcpConfig(**dataclasses.asdict(jax_cfg))`` converts the
-reference's settings.  ``from_yaml`` is not ported (it needs PyYAML's
-nested mappings).  ``checkpoint_batches > 0`` turns on stage 1's
+reference's settings, and ``from_yaml`` reads the reference's nested
+``icp_parameters.yaml`` (through the port's own YAML subset,
+``io.formats.load_yaml``).  ``checkpoint_batches > 0`` turns on stage 1's
 mid-stage checkpoint, as in the reference.  ``mesh_devices`` and
 ``shard_scans`` ask for a mesh of ranks (``parallel/mesh.py``): the
 stages then run over the ranks of the process group.
@@ -12,6 +13,8 @@ stages then run over the ranks of the process group.
 from __future__ import annotations
 
 import dataclasses
+
+from lidar_slam_arvc_tpu_torch.io.formats import load_yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +43,21 @@ class IcpConfig:
     source_stride: int = 1
     mesh_devices: int = 1
     shard_scans: bool = False
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "IcpConfig":
+        """The defaults with the six fields an ``icp_parameters.yaml`` sets
+        (``filter_by_radius``, ``filter_by_height``, ``down_sample``,
+        ``icp``), then ``overrides``."""
+        with open(path) as f:
+            y = load_yaml(f.read())
+        kw = dict(
+            max_radius=y["filter_by_radius"]["max_radius"],
+            min_radius=y["filter_by_radius"]["min_radius"],
+            max_height=y["filter_by_height"]["max_height"],
+            min_height=y["filter_by_height"]["min_height"],
+            voxel_size=y["down_sample"]["voxel_size"],
+            distance_threshold=y["icp"]["distance_threshold"],
+        )
+        kw.update(overrides)
+        return cls(**kw)

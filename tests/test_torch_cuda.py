@@ -394,6 +394,32 @@ def test_pose_graph_solve_refuses_tf32(dev):
     assert np.isfinite(g.optimize(solver="pcg"))
 
 
+def test_raw_moment_normals_refuse_tf32_and_match_k2(dev, rng):
+    """``radius_accumulate`` raises under TF32 matmuls (its raw moments
+    cancel in S2/n - m m^T), under ``allow_tf32`` and under
+    ``set_float32_matmul_precision("high")`` alike; in full f32 its
+    normals (``impl="xla"``) agree with K2's on a smooth sheet."""
+    from lidar_slam_arvc_tpu_torch.ops.nn import radius_accumulate
+    pts = rng.uniform(-3, 3, size=(300, 3)).astype(np.float32)
+    pts[:, 2] = 0.3 * np.sin(pts[:, 0])
+    c = cl.from_numpy(pts, 512, device=dev)
+    for switch in (lambda: setattr(torch.backends.cuda.matmul, "allow_tf32", True),
+                   lambda: torch.set_float32_matmul_precision("high")):
+        switch()
+        try:
+            with pytest.raises(RuntimeError, match="f32 matmuls"):
+                radius_accumulate(c.points, c.points, c.mask, 0.8)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cuda.matmul.allow_tf32 = False
+    m = c.mask.cpu().numpy()
+    a = cl.estimate_normals(c, 0.8, impl="xla").normals.cpu().numpy()[m]
+    b = cl.estimate_normals(c, 0.8, impl="auto").normals.cpu().numpy()[m]
+    assert np.abs(np.sum(a * b, axis=1)).min() > 0.999
+    with pytest.raises(ValueError):
+        cl.estimate_normals(c, 0.8, impl="pallas_interpret")
+
+
 def test_singular_preconditioner_block_is_nonfinite(dev):
     """A singular 6x6 block through each PCG preconditioner's set-up (BCR,
     block tridiagonal, Jacobi) gives a non-finite preconditioner on the

@@ -106,7 +106,7 @@ def test_voxel_downsample_matches_reference(rng, case):
         pts = pts * np.float32([3.0, 1.0, 1.0])
     if case == "truncated":
         cap = 1000
-    c = cl.from_numpy(pts, 4096)
+    c = cl.from_numpy(pts, 4096, device="cpu")
     got, n_got = cl.voxel_downsample_counted(c, voxel, out_capacity=cap)
     assert got.points.is_contiguous()      # the kernels take only these
     ref, n_ref = cl_ref.voxel_downsample_counted(
@@ -125,7 +125,7 @@ def test_voxel_downsample_matches_reference(rng, case):
 
 def test_voxel_batched_equals_single(rng):
     scans = [_scan(rng, 1500) for _ in range(3)]
-    cs = [cl.from_numpy(s, 2048) for s in scans]
+    cs = [cl.from_numpy(s, 2048, device="cpu") for s in scans]
     batch = cl.Cloud(torch.stack([c.points for c in cs]),
                      torch.stack([c.mask for c in cs]))
     got, nv = cl.voxel_downsample_counted(batch, 0.2, out_capacity=1500)
@@ -151,7 +151,7 @@ def test_estimate_normals_matches_reference(rng):
     """|n . n_ref| > 0.9999 on rows with >= 5 neighbours whose two smallest
     covariance eigenvalues are well separated (elsewhere the eigenvector is
     ill-conditioned and f32 summation order may turn it)."""
-    c = cl.from_numpy(_scan(rng, 3000), 4096)
+    c = cl.from_numpy(_scan(rng, 3000), 4096, device="cpu")
     c, _ = cl.voxel_downsample_counted(c, 0.2)
     radius = 0.5
     got = cl.estimate_normals(c, radius)
@@ -183,7 +183,7 @@ def test_preprocess_batch_matches_reference(rng, method, voxel):
     exact."""
     cfg_ref = IcpConfigRef(raw_capacity=4096, capacity=2048)
     cfg = IcpConfig(**dataclasses.asdict(cfg_ref))
-    raw = [cl.from_numpy(_scan(rng, 2500), 4096) for _ in range(2)]
+    raw = [cl.from_numpy(_scan(rng, 2500), 4096, device="cpu") for _ in range(2)]
     pts = np.stack([n(c.points) for c in raw])
     msk = np.stack([n(c.mask) for c in raw])
     got = preprocess_batch(t(pts), t(msk), cfg, method, voxel)

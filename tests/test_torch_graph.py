@@ -35,14 +35,15 @@ from lidar_slam_arvc_tpu.graph import PoseGraph as PoseGraphRef
 from lidar_slam_arvc_tpu.graph import bcr as bcr_ref
 from lidar_slam_arvc_tpu.graph import pcg as pcg_ref
 from lidar_slam_arvc_tpu.graph import solver as solver_ref
-from lidar_slam_arvc_tpu_torch.geom import rotations, se3
+from lidar_slam_arvc_tpu_torch.geom import se3
 from lidar_slam_arvc_tpu_torch.graph import DEFAULT_SIGMAS, PoseGraph, make_factor_data
 from lidar_slam_arvc_tpu_torch.graph import bcr, pcg, solver
 from lidar_slam_arvc_tpu_torch.graph.factors import FACTOR_FIELDS
 from lidar_slam_arvc_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
-# the JAX package's geom/__init__ exports functions named like its modules
+# both packages' geom/__init__ export functions named like their modules
+rotations = importlib.import_module("lidar_slam_arvc_tpu_torch.geom.rotations")
 rot_ref = importlib.import_module("lidar_slam_arvc_tpu.geom.rotations")
 se3_ref = importlib.import_module("lidar_slam_arvc_tpu.geom.se3")
 

@@ -38,11 +38,11 @@ def _random_transforms(rng, n):
 
 
 def test_port_imports_no_jax_pandas_yaml():
-    """Importing every module of the port loads none of jax, pandas, yaml
-    or the JAX package, nor matplotlib or scipy, which the port imports
-    only when it draws a figure or makes a mesh, and initialises no
-    process group and starts no process (the parallel/ modules; checked
-    in a fresh interpreter)."""
+    """Importing every module of the port (``compat`` among them) loads
+    none of jax, pandas, yaml or the JAX package, nor matplotlib or scipy,
+    which the port imports only when it draws a figure or makes a mesh,
+    and initialises no process group and starts no process (the
+    parallel/ modules; checked in a fresh interpreter)."""
     code = (
         "import multiprocessing, pkgutil, sys, importlib, torch\n"
         "import lidar_slam_arvc_tpu_torch as p\n"
@@ -50,6 +50,7 @@ def test_port_imports_no_jax_pandas_yaml():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "assert 'lidar_slam_arvc_tpu_torch.parallel.mesh' in sys.modules\n"
+        "assert 'lidar_slam_arvc_tpu_torch.compat' in sys.modules\n"
         "assert not torch.distributed.is_initialized()\n"
         "assert not multiprocessing.active_children()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

@@ -114,7 +114,8 @@ def exchange_rows(size: int) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def pair_batch():
-    return tuple(t.numpy() for t in tiny_pair_batch(batch=8, cap=256, seed=3))
+    return tuple(t.numpy() for t in tiny_pair_batch(batch=8, cap=256, seed=3,
+                                                     device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +145,7 @@ def layout_stack():
     for i in range(n_scans):
         scan = synthetic.render_scan(world, T_gt[i], rng, max_range=10.0,
                                      max_points=cap)
-        clouds.append(estimate_normals(from_numpy(scan, cap), radius=0.6))
+        clouds.append(estimate_normals(from_numpy(scan, cap, device="cpu"), radius=0.6))
     stack = tuple(torch.stack([getattr(c, f) for c in clouds]).numpy()
                   for f in ("points", "mask", "normals"))
     seeds = np.stack([np.linalg.inv(T_gt[i]) @ T_gt[i + 1]
@@ -177,7 +178,7 @@ def groups(pair_batch, store_data, layout_stack):
                                     LAYOUT_PARAMS, 2)),
             (_ranks.counters, ()))
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        runs = [ex.submit(mesh.launch, n, *call, timeout_s=120)
+        runs = [ex.submit(mesh.launch, n, *call, device="cpu", timeout_s=120)
                 for n, call in ((2, two), (4, four))]
         return [r.result() for r in runs]
 
@@ -327,7 +328,8 @@ def test_failing_rank_fails_the_launch():
     launch with its message, within the failure grace, not a hang."""
     t0 = time.time()
     with pytest.raises(mesh.RankError, match="only rank 1") as exc:
-        mesh.launch(2, _ranks.fail_on, [1], "only rank 1", timeout_s=60)
+        mesh.launch(2, _ranks.fail_on, [1], "only rank 1", device="cpu",
+                    timeout_s=60)
     assert 1 in exc.value.errors
     assert time.time() - t0 < 60
 

@@ -47,7 +47,7 @@ from lidar_slam_arvc_tpu.registration import icp_two_planes as two_planes_ref
 from lidar_slam_arvc_tpu.utils.config import IcpConfig as IcpConfigRef
 from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.cloud import plane
-from lidar_slam_arvc_tpu_torch.geom import rotations, se3
+from lidar_slam_arvc_tpu_torch.geom import se3
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore
 from lidar_slam_arvc_tpu_torch.pipeline import cli
@@ -59,7 +59,8 @@ from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate
 
 torch.set_num_threads(1)
-# the JAX package's geom/__init__ exports functions named like its modules
+# both packages' geom/__init__ export functions named like their modules
+rotations = importlib.import_module("lidar_slam_arvc_tpu_torch.geom.rotations")
 rot_ref = importlib.import_module("lidar_slam_arvc_tpu.geom.rotations")
 se3_ref = importlib.import_module("lidar_slam_arvc_tpu.geom.se3")
 # the port's registration/__init__ exports a function named like its icp module

@@ -85,7 +85,7 @@ def scene():
 
 def _port(c):
     return cl.from_arrays(np.asarray(c.points), np.asarray(c.mask),
-                          np.asarray(c.normals))
+                          np.asarray(c.normals), device="cpu")
 
 
 def _close(T_got, T_ref, it_got=None, it_ref=None):
