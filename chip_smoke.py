@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through fourteen phases,
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through fifteen phases,
 one line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -158,7 +158,24 @@ one line each, and exits non-zero on any failure:
    global transforms through ``compat`` (unstack, relative, global,
    stack) within 1e-9 of themselves and of the card's float64
    ``global_transforms``, with no jax, pandas or yaml imported.
-15. the last line: {"ok": true, "device": {...}}.
+15. the method-level API (after phase 14, before phase 9), one line per
+   part, each with the launch counts set to 0 just before its run and read
+   just after: (a) ``pipeline.quickstart.main`` on the card at its size
+   (40 scans x 8000 points, raw capacity 16384, capacity 8192): ATE, RPE,
+   stage-1 frames/s, stage-2 solve+loop seconds, K1/K2 launches of each
+   stage; fails unless stage-1 ATE < 0.2 m, the SLAM solution is finite
+   and K1 and K2 launched; (b) an array-form ``LoopCloser`` over phase 8's
+   store tensors (phase 4's 257 scans at voxel None, capacity 8192) with
+   an ICP override (gate 2 m, 15 iterations, source stride 4), on a graph
+   of the true poses with a small drift, closing at pose 250: the card's
+   accepted closures equal the CPU's and their transforms agree within
+   1e-4 m / 1e-4 rad, K1 launched; the same override through a store
+   leaves the store's own parameters (``icp_params_override`` None) and
+   gives the array form's transforms bit for bit; (c) ``memory_bytes()``
+   equal to the sum of the store's tensors' bytes (icppointplane and
+   icp2planes stores), ``load_and_preprocess(seed=0)`` bit-equal to the
+   default under icp2planes (24 scans), and ``EurocDataset.path``.
+16. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
@@ -205,6 +222,7 @@ from lidar_slam_arvc_tpu_torch.io import native, rosbag  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd  # noqa: E402
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore  # noqa: E402
+from lidar_slam_arvc_tpu_torch.loop import LoopCloser  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
@@ -213,7 +231,7 @@ from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
     radius_accumulate)
 from lidar_slam_arvc_tpu_torch.parallel import _ranks  # noqa: E402
 from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh  # noqa: E402
-from lidar_slam_arvc_tpu_torch.pipeline import cli  # noqa: E402
+from lidar_slam_arvc_tpu_torch.pipeline import cli, quickstart  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline.graphslam import run_graphslam  # noqa: E402
 from lidar_slam_arvc_tpu_torch.registration.global_reg import (  # noqa: E402
@@ -724,7 +742,7 @@ def phase_nn_impls(d, T_gt, dev):
     scan_times, _, _, odo, _ = sm.prepare_experiment_data(euroc, 0, prm["delta_time"])
     raw_pts, raw_mask = sm.load_scans(euroc, scan_times, cfg.raw_capacity)
     scans, _ = sm.preprocess_all(
-        raw_pts, raw_mask, cfg, prm["method"], prm["voxel_size"], dev)
+        raw_pts, raw_mask, cfg, prm["method"], prm["voxel_size"], device=dev)
     points, mask, normals = scans.points, scans.mask, scans.normals
     idx_src, idx_tgt, seeds = sm.consecutive_pairs(
         points.shape[0], cfg.batch_size, sm.relative_odometry(odo))
@@ -1251,7 +1269,7 @@ def _preprocess_seconds(raw, method, dev):
     cfg = IcpConfig(capacity=CAPACITY)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scans, _ = sm.preprocess_all(*raw, cfg, method, VOXEL, dev)
+    scans, _ = sm.preprocess_all(*raw, cfg, method, VOXEL, device=dev)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, scans
 
@@ -1493,13 +1511,13 @@ def _host_load(euroc, times, cfg, method, dev):
             if path == "two":
                 t_load, raw = _timed(lambda: sm.load_scans(euroc, times, cfg.raw_capacity))
                 t_pre, (two, _) = _timed(lambda: sm.preprocess_all(
-                    *raw, cfg, method, VOXEL, dev))
+                    *raw, cfg, method, VOXEL, device=dev))
                 rec["load"].append(t_load)
                 rec["preprocess"].append(t_pre)
                 rec["two-phase"].append(t_load + t_pre)
             else:
                 t, (stream, _, n_py) = _timed(lambda: sm.load_and_preprocess_streamed(
-                    euroc, times, cfg, method, VOXEL, dev))
+                    euroc, times, cfg, method, VOXEL, device=dev))
                 rec["streamed"].append(t)
                 if n_py:
                     fail(f"phase 12: {n_py} PCDs went to the Python parser")
@@ -1833,7 +1851,7 @@ def _mesh_pairs(d, dev):
     times = euroc.read_csv("/robot0/scanmatcher/lidar_times.csv")["#timestamp [ns]"]
     cfg = IcpConfig(capacity=CAPACITY)
     scans, _, _ = sm.load_and_preprocess_streamed(
-        euroc, times[:MESH_PAIRS + 1], cfg, "icppointplane", VOXEL, dev)
+        euroc, times[:MESH_PAIRS + 1], cfg, "icppointplane", VOXEL, device=dev)
     odo = euroc.read_csv("/robot0/odom/data.csv")
     odo = euroc.get_rows_at_times(odo, euroc.get_closest_times(times, odo["#timestamp [ns]"]))
     seeds = sm.relative_odometry(odo)[:MESH_PAIRS].astype(np.float32)
@@ -2346,6 +2364,155 @@ def phase_api(d, smi, dev, tmp):
     print(f"phase 14 public API: {dd}; phase {time.time() - t0:.1f} s; card {smi}")
 
 
+# phase 15 (b): the loop closer's ICP override (the store's own: 10 m, 30
+# iterations, stride 1), the pose it closes at and the drift per step of
+# its graph
+LOOP_OVERRIDE = ICPParams(max_correspondence_distance=2.0, max_iterations=15,
+                          source_stride=4)
+LOOP_AT = 250
+LOOP_DRIFT = (1e-3, 1e-4)     # m along x, rad of yaw
+LOOP_ATOL = 1e-4              # card vs CPU transforms, m and rad
+SEED_SCANS = 24               # phase 15 (c): scans of the icp2planes stores
+
+
+def _loop_api_quickstart(tmp):
+    """(a): the quickstart at its card size, its launches counted."""
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = quickstart.main([os.path.join(tmp, "quickstart")])
+    wall = time.time() - t0
+    total = dict(_cuda.launch_counts)
+    if not out["stage1_ate"] < VOXEL or not np.isfinite(
+            [out["slam_ate"], out["slam_rpe"]]).all():
+        fail(f"phase 15 (a): quickstart stage-1 ATE {out['stage1_ate']} m "
+             f"(bound {VOXEL}), SLAM ATE {out['slam_ate']}, RPE {out['slam_rpe']}")
+    if total["nn_sweep"] <= 0 or total["ball_moments"] <= 0 or \
+            out["stage1_launches"]["nn_sweep"] <= 0:
+        fail(f"phase 15 (a): quickstart launched {total}")
+    s1, s2 = out["stage1_launches"], out["stage2_launches"]
+    return (f"(a) quickstart ({out['scans']} scans x {quickstart.SIZES['cuda'][1]} "
+            f"points, raw capacity {quickstart.SIZES['cuda'][2]}, capacity "
+            f"{quickstart.SIZES['cuda'][3]}): stage-1 ATE {out['stage1_ate']:.5f} m, "
+            f"{out['frames_per_second']} frames/s; SLAM ATE {out['slam_ate']:.5f} m, "
+            f"RPE {out['slam_rpe']:.5f} m/step, {out['loop_closures']} closures, "
+            f"solve+loop {out['solve_loop_seconds']} s; launches stage 1 K1 "
+            f"{s1['nn_sweep']} K2 {s1['ball_moments']}, stage 2 K1 {s2['nn_sweep']} "
+            f"K2 {s2['ball_moments']}; viewer {out['view_error'] or 'drawn'}; "
+            f"wall {wall:.2f} s")
+
+
+def _drifted_graph(T_gt, device):
+    g = PoseGraph(max_poses=512, device=device)
+    g.init_graph()
+    drift = synthetic._yaw_T(LOOP_DRIFT[0], 0.0, LOOP_DRIFT[1])
+    for i in range(LOOP_AT):
+        rel = np.linalg.inv(T_gt[i]) @ T_gt[i + 1] @ drift
+        g.add_initial_estimate(rel, i + 1)
+        g.add_edge(rel, i, i + 1, "SM")
+    return g
+
+
+def _loop_edges(g):
+    """The transforms of the graph's loop-closure edges, in order."""
+    return g.bt_T[g.chain_capacity:g.chain_capacity + g.n_loop]
+
+
+def _loop_closing(T_gt, d, device, *store):
+    """(closer, accepted closures, their transforms, seconds) of a
+    LoopCloser over ``store`` (a KeyframeStore, or points, masks and
+    normals) with the ICP override, on a drifted graph of the true poses."""
+    slam = EurocDataset(d).read_slam_parameters()
+    g = _drifted_graph(T_gt, device)
+    closer = LoopCloser(g, *store, distance_backwards=slam["distance_backwards"],
+                        radius_threshold=slam["radius_threshold"],
+                        icp_params=LOOP_OVERRIDE)
+    t0 = time.perf_counter()
+    added = closer.loop_closing_triangle(LOOP_AT, slam["number_of_triplets_loop_closing"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return closer, added, _loop_edges(g).astype(np.float64), time.perf_counter() - t0
+
+
+def _loop_api_closer(d, T_gt, dev, store):
+    """(b): the array-form LoopCloser with the override, card vs CPU, and
+    the same override through the store."""
+    tensors = (store.points, store.mask, store.normals)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    closer, card, T_card, s_card = _loop_closing(T_gt, d, dev, *tensors)
+    k1 = _cuda.launch_counts["nn_sweep"]
+    if closer.store.points is not tensors[0] or \
+            closer.store.icp_params_override is not LOOP_OVERRIDE:
+        fail("phase 15 (b): the array form did not wrap the caller's tensors")
+    _, cpu, T_cpu, s_cpu = _loop_closing(T_gt, d, torch.device("cpu"),
+                                         *(t.cpu() for t in tensors))
+    if not card or card != cpu or k1 <= 0:
+        fail(f"phase 15 (b): the card accepted {card}, the CPU {cpu}; K1 launches {k1}")
+    dpos, drot = _pose_err(T_card, T_cpu)
+    if dpos.max() > LOOP_ATOL or drot.max() > LOOP_ATOL:
+        fail(f"phase 15 (b): card vs CPU closures differ by {dpos.max()} m / "
+             f"{drot.max()} rad")
+    via, via_store, T_store, _ = _loop_closing(T_gt, d, dev, store)
+    if store.icp_params_override is not None or via.store is store or \
+            via.store.points is not store.points or via_store != card or \
+            not np.array_equal(T_store, T_card):
+        fail(f"phase 15 (b): through the store: closures {via_store}, its own "
+             f"override {store.icp_params_override}")
+    return (f"(b) array-form LoopCloser over phase 8's store tensors "
+            f"({tuple(store.points.shape)}), override {LOOP_OVERRIDE.max_correspondence_distance} m / "
+            f"{LOOP_OVERRIDE.max_iterations} iterations / stride "
+            f"{LOOP_OVERRIDE.source_stride}, closing at {LOOP_AT} (drift "
+            f"{LOOP_DRIFT} per step): {len(card)} closures "
+            + " ".join(f"{i}-{j}" for i, j in card)
+            + f", the CPU's; card vs CPU {dpos.max():.3g} m / {drot.max():.3g} rad "
+            f"(bound {LOOP_ATOL}); {closer.timings['icp_pairs']} ICP pairs, K1 "
+            f"launches {k1}; card {s_card:.3f} s, CPU {s_cpu:.3f} s; through the "
+            f"store: its own parameters kept, the same closures bit for bit")
+
+
+def _loop_api_store(d, dev, store):
+    """(c): memory_bytes, load_and_preprocess(seed=0), path."""
+    times = EurocDataset(d).read_csv("/robot0/scanmatcher/lidar_times.csv")[
+        "#timestamp [ns]"][:SEED_SCANS]
+    cfg = IcpConfig(capacity=STAGE2_CAPACITY)
+    default, seeded = (KeyframeStore(d, times, method="icp2planes", cfg=cfg, device=dev)
+                       .load_and_preprocess(**kw) for kw in ({}, {"seed": 0}))
+    fields = ("points", "mask", "normals", "ground_mask", "nonground_mask")
+    for f in fields:
+        if not torch.equal(getattr(default, f), getattr(seeded, f)):
+            fail(f"phase 15 (c): load_and_preprocess(seed=0) {f} differs from the default")
+    sizes = []
+    for s in (store, seeded):
+        want = sum(t.numel() * t.element_size() for t in
+                   (getattr(s, f) for f in fields) if t is not None)
+        if s.memory_bytes() != want:
+            fail(f"phase 15 (c): memory_bytes {s.memory_bytes()}, the tensors hold {want}")
+        sizes.append(want)
+    rel = "/robot0/lidar/data.csv"
+    if EurocDataset(d).path(rel) != d + rel or not os.path.exists(d + rel):
+        fail(f"phase 15 (c): EurocDataset.path gave {EurocDataset(d).path(rel)}")
+    return (f"(c) memory_bytes {sizes[0]} B (icppointplane, {len(store)} scans) and "
+            f"{sizes[1]} B (icp2planes, {SEED_SCANS} scans), the tensors' bytes; "
+            f"load_and_preprocess(seed=0) bit-equal to the default under icp2planes; "
+            f"EurocDataset.path")
+
+
+def phase_loop_api(d, T_gt, smi, dev, tmp):
+    """Phase 15: the method-level API on the card."""
+    t0 = time.time()
+    a = _loop_api_quickstart(tmp)
+    print(f"phase 15 method-level API: {a}")
+    times = EurocDataset(d).read_csv("/robot0/scanmatcher/lidar_times.csv")["#timestamp [ns]"]
+    store = KeyframeStore(d, times, cfg=IcpConfig(capacity=STAGE2_CAPACITY),
+                          device=dev).load_and_preprocess()
+    b = _loop_api_closer(d, T_gt, dev, store)
+    print(f"phase 15 method-level API: {b}")
+    c = _loop_api_store(d, dev, store)
+    print(f"phase 15 method-level API: {c}; phase {time.time() - t0:.1f} s; card {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -2366,6 +2533,7 @@ def main():
         phase_host(d, T_gt, smi, dev, tmp)
         phase_mesh(d, T_gt, smi, dev, tmp, stage2_rec)
         phase_api(d, smi, dev, tmp)
+        phase_loop_api(d, T_gt, smi, dev, tmp)
     phase_solvers(dev)
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1

@@ -36,8 +36,8 @@ class PoseGraph:
                  T0_gps: np.ndarray | None = None,
                  max_poses: int = 4096, max_between: int | None = None,
                  max_gps: int | None = None,
-                 sigmas: NoiseSigmas = DEFAULT_SIGMAS,
-                 chain_capacity: int | None = None, device="cuda", mesh=None):
+                 sigmas: NoiseSigmas = DEFAULT_SIGMAS, mesh=None,
+                 chain_capacity: int | None = None, device="cuda"):
         """``mesh``: a ``parallel.mesh.DataMesh`` of the ranks that solve
         the graph together (solver 'schur'); every rank builds the same
         graph."""

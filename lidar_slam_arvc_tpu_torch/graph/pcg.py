@@ -146,47 +146,48 @@ def conjugate_gradient(hx, apply_M, b: torch.Tensor, max_iters: int,
     return x
 
 
-def pcg_lm_step(poses, f: FactorData, n_active: int, lam: float,
+def pcg_lm_step(poses, factors: FactorData, n_active: int, lam: float,
                 max_cg_iters: int = 200, rtol: float = 1e-6,
                 precond: str = "auto", stats: dict | None = None):
     """One damped Gauss-Newton step solved by preconditioned CG:
     (candidate poses, candidate cost)."""
-    lin = linearize(poses, f, n_active)
+    lin = linearize(poses, factors, n_active)
     delta = conjugate_gradient(
-        _hx_operator(lin, f, lam), _preconditioner(lin, f, lam, precond),
+        _hx_operator(lin, factors, lam),
+        _preconditioner(lin, factors, lam, precond),
         -lin.grad, max_cg_iters, rtol, stats)
     new = _retract(poses, delta, n_active)
-    return new, graph_cost(new, f)
+    return new, graph_cost(new, factors)
 
 
-def solve_graph_pcg(poses, f: FactorData, n_active: int,
+def solve_graph_pcg(poses, factors: FactorData, n_active: int,
                     max_iterations: int = 15, lam0: float = 1e-6,
                     tol: float = 1e-7, max_cg_iters: int = 200,
                     precond: str = "auto", stats: dict | None = None):
     """The LM schedule of ``solver.solve_graph`` around PCG steps.  Returns
     (poses on the device, final cost as a numpy scalar)."""
     return lm_schedule(
-        lambda p, lam: pcg_lm_step(p, f, n_active, lam, max_cg_iters,
+        lambda p, lam: pcg_lm_step(p, factors, n_active, lam, max_cg_iters,
                                    precond=precond, stats=stats),
-        poses, graph_cost(poses, f), max_iterations, lam0, tol, stats)
+        poses, graph_cost(poses, factors), max_iterations, lam0, tol, stats)
 
 
-def marginal_blocks_pcg(poses, f: FactorData, n_active: int, indices,
+def marginal_blocks_pcg(poses, factors: FactorData, n_active: int, indices,
                         max_cg_iters: int = 400, rtol: float = 1e-9,
                         stats: dict | None = None) -> torch.Tensor:
     """Marginal 6x6 covariance blocks of the poses in ``indices`` (K,),
     without assembling H: the 6 columns H^-1 e_{p,j} of each pose by PCG
     (undamped H, the cyclic-reduction or tridiagonal preconditioner), all
     K*6 columns in one batch.  Returns (K, 6, 6)."""
-    lin = linearize(poses, f, n_active)
+    lin = linearize(poses, factors, n_active)
     idx = torch.as_tensor(indices, dtype=torch.int64, device=poses.device)
     K = idx.shape[0]
     rows = idx.repeat_interleave(6)
     comp = torch.arange(6, device=poses.device).repeat(K)
     b = poses.new_zeros((K * 6,) + lin.grad.shape)
     b[torch.arange(K * 6, device=poses.device), rows, comp] = 1.0
-    x = conjugate_gradient(_hx_operator(lin, f, 0.0),
-                           _preconditioner(lin, f, 0.0, "auto"), b,
+    x = conjugate_gradient(_hx_operator(lin, factors, 0.0),
+                           _preconditioner(lin, factors, 0.0, "auto"), b,
                            max_cg_iters, rtol, stats)
     cols = x[torch.arange(K * 6, device=poses.device), rows]   # (K*6, 6)
     return cols.reshape(K, 6, 6).transpose(1, 2)

@@ -79,14 +79,14 @@ def _prior_residuals(poses, f: FactorData):
     return r, _jr_inv(r)
 
 
-def graph_cost(poses: torch.Tensor, f: FactorData) -> torch.Tensor:
+def graph_cost(poses: torch.Tensor, factors: FactorData) -> torch.Tensor:
     """0.5 * sum of squared whitened residuals (a 0-dim tensor)."""
-    r_b, _, _ = _between_residuals(poses, f)
-    r_g, _ = _gps_residuals(poses, f)
-    r_p, _ = _prior_residuals(poses, f)
-    return 0.5 * (torch.sum((r_b * f.bt_winv) ** 2)
-                  + torch.sum((r_g * f.gps_winv) ** 2)
-                  + torch.sum((r_p * f.pr_winv) ** 2))
+    r_b, _, _ = _between_residuals(poses, factors)
+    r_g, _ = _gps_residuals(poses, factors)
+    r_p, _ = _prior_residuals(poses, factors)
+    return 0.5 * (torch.sum((r_b * factors.bt_winv) ** 2)
+                  + torch.sum((r_g * factors.gps_winv) ** 2)
+                  + torch.sum((r_p * factors.pr_winv) ** 2))
 
 
 class Linearized(NamedTuple):
@@ -176,7 +176,7 @@ def _lm_step(poses, f: FactorData, n_active: int, lam: float):
     return new, torch.where(info == 0, cost, torch.full_like(cost, torch.inf))
 
 
-def marginal_covariances(poses: torch.Tensor, f: FactorData, n_active: int,
+def marginal_covariances(poses: torch.Tensor, factors: FactorData, n_active: int,
                          chunk: int = 64) -> torch.Tensor:
     """Per-pose 6x6 marginal covariance blocks in the tangent frame [w, v]
     (gtsam.Marginals parity, reference graphSLAM.py:117-137): the diagonal
@@ -190,7 +190,7 @@ def marginal_covariances(poses: torch.Tensor, f: FactorData, n_active: int,
     chunk = min(chunk, n)
     if n % chunk:
         raise ValueError(f"pose capacity {n} not divisible by chunk {chunk}")
-    H, _ = _assemble(poses, f, n_active)
+    H, _ = _assemble(poses, factors, n_active)
     H = H + 1e-9 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
     s = torch.rsqrt(torch.clamp(torch.diagonal(H), min=1e-30))
     L, info = torch.linalg.cholesky_ex(H * s[:, None] * s[None, :])
@@ -243,11 +243,11 @@ def lm_schedule(step, poses: torch.Tensor, cost0: torch.Tensor,
     return poses, cost
 
 
-def solve_graph(poses: torch.Tensor, f: FactorData, n_active: int,
+def solve_graph(poses: torch.Tensor, factors: FactorData, n_active: int,
                 max_iterations: int = 15, lam0: float = 1e-6,
                 tol: float = 1e-7, stats: dict | None = None):
     """Batch LM solve with dense Cholesky steps.  Returns (poses (N,4,4)
     on the device, final cost as a numpy scalar)."""
     return lm_schedule(
-        lambda p, lam: _lm_step(p, f, n_active, lam), poses,
-        graph_cost(poses, f), max_iterations, lam0, tol, stats)
+        lambda p, lam: _lm_step(p, factors, n_active, lam), poses,
+        graph_cost(poses, factors), max_iterations, lam0, tol, stats)

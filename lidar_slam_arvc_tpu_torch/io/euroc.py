@@ -38,6 +38,9 @@ class EurocDataset:
 
     # ---------------------------------------------------------------- reads
 
+    def path(self, relative: str) -> str:
+        return self.directory + relative
+
     def read_csv(self, filename: str) -> dict:
         return read_csv(self.directory + filename)
 

@@ -131,8 +131,8 @@ def read_pcd_xyz(path: str, capacity: int) -> np.ndarray | None:
     return buf[:n].copy()
 
 
-def read_pcd_batch(paths: list[str], capacity: int, out: np.ndarray | None = None,
-                   n_threads: int | None = None):
+def read_pcd_batch(paths: list[str], capacity: int, n_threads: int | None = None,
+                   out: np.ndarray | None = None):
     """Threaded batch read -> (points (B, capacity, 3) f32, counts (B,) int64).
 
     Each file's first ``capacity`` points, the rest of its row zero.

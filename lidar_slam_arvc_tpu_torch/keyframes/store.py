@@ -18,8 +18,11 @@ them under the store's method (reference keyframes/store.py:288-320):
   ``torch.Generator().manual_seed(0)`` on every call, as the reference
   keys every call with ``PRNGKey(0)``.
 
-The ground planes are drawn from ``seeded_generator(PLANE_SEED, i)`` for
-scan i, as the reference's store preprocesses with seed 0.
+The ground planes are drawn from ``seeded_generator(seed, i)`` for scan i
+(``load_and_preprocess(seed=)``, default ``PLANE_SEED`` = 0, the
+reference's store seed).  ``icp_params_override`` (``from_arrays(icp_params=)``,
+or ``LoopCloser(icp_params=)`` on a copy) replaces the ICP parameters that
+the store's config gives, under every method.
 
 Over a mesh of ranks (``parallel/mesh.py``) a store is sharded: rank d
 keeps only its contiguous block of the scans (whole preprocessing
@@ -74,6 +77,7 @@ class KeyframeStore:
         self.normals = None
         self.ground_mask = None
         self.nonground_mask = None
+        self.icp_params_override: ICPParams | None = None
         self.overflow = None   # (N,) voxels dropped per scan (capacity)
         self.n_loaded_locally = 0
         self.mesh = None       # set when the scan axis is sharded
@@ -81,14 +85,17 @@ class KeyframeStore:
     @classmethod
     def from_arrays(cls, points, mask, normals, method: str = "icppointplane",
                     cfg: IcpConfig | None = None, ground_mask=None,
-                    nonground_mask=None) -> "KeyframeStore":
+                    nonground_mask=None,
+                    icp_params: ICPParams | None = None) -> "KeyframeStore":
         """A store backed by already-preprocessed stacked tensors (N, C, 3),
         (N, C), (N, C, 3), on their device; icp2planes and fpfh also need
-        the (N, C) ground and non-ground masks."""
+        the (N, C) ground and non-ground masks.  ``icp_params``: the ICP
+        parameters of its registrations, in place of the config's."""
         store = cls(None, np.arange(points.shape[0]), method=method, cfg=cfg,
                     device=points.device)
         store.points, store.mask, store.normals = points, mask, normals
         store.ground_mask, store.nonground_mask = ground_mask, nonground_mask
+        store.icp_params_override = icp_params
         store.n_loaded_locally = points.shape[0]
         return store
 
@@ -102,9 +109,11 @@ class KeyframeStore:
         return self.points is not None
 
     def load_and_preprocess(self, keyframe_sampling: int = 1,
+                            seed: int = PLANE_SEED,
                             mesh=None) -> "KeyframeStore":
         """Load every ``keyframe_sampling``-th scan and preprocess it on the
         store's device (reference keyframemanager.py:20-50, all at once).
+        ``seed`` keys the ground planes' draws under icp2planes and fpfh.
         With a ``mesh`` of several ranks, this rank loads only its block
         of the sharded store."""
         from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import (
@@ -121,7 +130,7 @@ class KeyframeStore:
                 times[-1:], mesh.size * k - len(times))])[first:first + k]
         scans, overflow, _ = load_and_preprocess_streamed(
             EurocDataset(self.directory), times, self.cfg, self.method,
-            self.voxel_size, self.device, seed=PLANE_SEED, first=first)
+            self.voxel_size, seed=seed, device=self.device, first=first)
         self.points, self.mask, self.normals = scans.points, scans.mask, scans.normals
         self.ground_mask, self.nonground_mask = scans.ground_mask, scans.nonground_mask
         self.n_loaded_locally = len(times)
@@ -191,11 +200,14 @@ class KeyframeStore:
         return KeyframeStore.from_arrays(
             gather(self.points), gather(self.mask), gather(self.normals),
             method=self.method, cfg=self.cfg, ground_mask=gather(self.ground_mask),
-            nonground_mask=gather(self.nonground_mask))
+            nonground_mask=gather(self.nonground_mask),
+            icp_params=self.icp_params_override)
 
     # ------------------------------------------------------ registration
 
     def _icp_params(self) -> ICPParams:
+        if self.icp_params_override is not None:
+            return self.icp_params_override
         return ICPParams(
             max_correspondence_distance=self.cfg.distance_threshold,
             max_iterations=self.cfg.max_iterations,
@@ -246,3 +258,13 @@ class KeyframeStore:
                             "point_to_point" if self.method == "icppointpoint"
                             else "point_to_plane")
         return res.transform.cpu().numpy().astype(np.float64)
+
+    # ------------------------------------------------------------- memory
+
+    def memory_bytes(self) -> int:
+        """Bytes of this process's points, mask, normals, ground and
+        non-ground masks (a sharded store's own block)."""
+        return sum(a.numel() * a.element_size()
+                   for a in (self.points, self.mask, self.normals,
+                             self.ground_mask, self.nonground_mask)
+                   if a is not None)

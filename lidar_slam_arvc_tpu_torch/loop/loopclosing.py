@@ -18,11 +18,18 @@ XLA reuses one compiled program; the port runs the real pairs only, and
 
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
+import torch
 
 from lidar_slam_arvc_tpu_torch.keyframes.store import KeyframeStore
+from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams
+
+# the legacy estimator names an array-form LoopCloser takes for ``method``
+_METHOD_ALIASES = {None: "icppointplane", "point_to_plane": "icppointplane",
+                   "point_to_point": "icppointpoint"}
 
 
 def _rot_to_euler_both_np(R: np.ndarray):
@@ -41,15 +48,40 @@ def _rot_to_euler_both_np(R: np.ndarray):
 
 
 class LoopCloser:
-    def __init__(self, graph, store: KeyframeStore,
+    def __init__(self, graph, store, scan_masks=None, scan_normals=None,
                  distance_backwards: float = 7.0,
-                 radius_threshold: float = 5.0, seed: int = 0):
+                 radius_threshold: float = 5.0,
+                 icp_params: ICPParams | None = None,
+                 method: str | None = None, seed: int = 0):
         """graph: PoseGraph; store: KeyframeStore of the preprocessed scans,
         whose registration method and ICP parameters the candidate ICPs
-        use (reference loopclosing.py:180 -> keyframemanager.py:60-72)."""
-        if not isinstance(store, KeyframeStore):
-            raise TypeError("LoopCloser needs a KeyframeStore "
-                            "(KeyframeStore.from_arrays wraps tensors)")
+        use (reference loopclosing.py:180 -> keyframemanager.py:60-72).
+
+        ``store`` may instead be the (N, CAP, 3) points tensor, with
+        ``scan_masks`` (N, CAP) and ``scan_normals`` (N, CAP, 3): it is
+        wrapped by ``KeyframeStore.from_arrays`` under ``method``
+        ('icppointplane' by default; 'point_to_plane'/'point_to_point' name
+        the ICP methods too; with a store, ``method`` may only repeat the
+        store's).  ``icp_params`` replaces the store's ICP parameters for
+        the loop closures; a store passed in is copied (sharing its
+        tensors), so that it keeps its own."""
+        if isinstance(store, torch.Tensor):
+            store = KeyframeStore.from_arrays(
+                store, scan_masks, scan_normals,
+                method=_METHOD_ALIASES.get(method, method), icp_params=icp_params)
+        elif isinstance(store, KeyframeStore):
+            if scan_masks is not None or scan_normals is not None:
+                raise ValueError("scan_masks and scan_normals go with a points "
+                                 "tensor; a KeyframeStore has its own")
+            if method is not None and _METHOD_ALIASES.get(method, method) != store.method:
+                raise ValueError(f"method {method!r} differs from the store's "
+                                 f"{store.method!r}")
+            if icp_params is not None:
+                store = copy.copy(store)
+                store.icp_params_override = icp_params
+        else:
+            raise TypeError("LoopCloser needs a KeyframeStore or an (N, CAP, 3) "
+                            f"points tensor, not {type(store).__name__}")
         self.graph = graph
         self.store = store
         self.distance_backwards = distance_backwards

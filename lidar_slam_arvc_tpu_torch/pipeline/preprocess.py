@@ -29,10 +29,10 @@ class PreprocessedScans(NamedTuple):
     points: torch.Tensor          # (N, CAP, 3)
     mask: torch.Tensor            # (N, CAP)
     normals: torch.Tensor         # (N, CAP, 3) — zeros if not needed
-    # occupied voxels (or valid points) BEFORE capacity truncation
-    n_voxels: torch.Tensor        # (N,) int32
     ground_mask: torch.Tensor | None = None      # (N, CAP) icp2planes, fpfh
     nonground_mask: torch.Tensor | None = None   # (N, CAP)
+    # occupied voxels (or valid points) BEFORE capacity truncation
+    n_voxels: torch.Tensor | None = None         # (N,) int32
 
 
 def check_voxel_extent(cfg: IcpConfig, voxel_size: float) -> None:

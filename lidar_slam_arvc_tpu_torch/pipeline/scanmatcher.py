@@ -123,11 +123,13 @@ def _load_paths(paths, raw_capacity: int, out: np.ndarray | None = None,
     return pts, counts, len(rejected)
 
 
-def load_scans(euroc: EurocDataset, scan_times, raw_capacity: int):
+def load_scans(euroc: EurocDataset, scan_times, raw_capacity: int,
+               max_workers: int = 4):
     """All PCDs as a padded (N, raw_capacity, 3) f32 stack + (N, raw) mask
-    (the native batch parser; rejected files in Python)."""
+    (the native batch parser; the files it rejects in Python, on
+    ``max_workers`` threads)."""
     pts, counts, _ = _load_paths([euroc.scan_pcd_path(t) for t in scan_times],
-                                 raw_capacity)
+                                 raw_capacity, max_workers=max_workers)
     return pts, np.arange(raw_capacity)[None, :] < counts[:, None]
 
 
@@ -166,12 +168,14 @@ def _assemble(outs: list, cfg: IcpConfig):
 
 
 def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
-                   method: str, voxel_size, device, seed: int = PLANE_SEED):
+                   method: str, voxel_size, seed: int = PLANE_SEED,
+                   device="cuda"):
     """Preprocess every scan of a loaded stack on ``device`` in batches of
     cfg.batch_size (the two-phase path: ``load_scans`` first).
 
     Returns the whole stack as ``PreprocessedScans`` of device tensors and
     the host (N,) count of voxels dropped by the capacity per scan."""
+    device = _cuda.torch_device(device, "preprocess_all")
     outs = []
     B = cfg.batch_size
     for b0 in range(0, raw_pts.shape[0], B):
@@ -183,8 +187,9 @@ def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
 
 def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
                                  cfg: IcpConfig, method: str, voxel_size,
-                                 device, seed: int = PLANE_SEED,
-                                 chunk_scans: int | None = None, first: int = 0):
+                                 seed: int = PLANE_SEED,
+                                 chunk_scans: int | None = None, device="cuda",
+                                 first: int = 0):
     """Chunked PCD loading pipelined with device preprocessing (reference
     scanmatcher.py:128-170).
 
@@ -199,7 +204,7 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
     ``scan_times[0]`` (a rank's block), which keys the draws.  Returns
     (``PreprocessedScans``, overflow (N,), number of files parsed in
     Python)."""
-    device = torch.device(device)
+    device = _cuda.torch_device(device, "load_and_preprocess_streamed")
     B = cfg.batch_size
     if chunk_scans is None:
         chunk_scans = max(8 * B, 32)
@@ -411,8 +416,9 @@ def _sharded_stack_dispatch(mesh, points, mask, normals, n_scans: int,
 
 
 def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
-                      cfg: IcpConfig, method: str, progress: bool = True,
+                      cfg: IcpConfig, method: str,
                       ground_mask=None, nonground_mask=None,
+                      progress: bool = True,
                       checkpoint_path: str | None = None,
                       checkpoint_key: int | None = None,
                       mesh=None, n_scans: int | None = None):
@@ -506,9 +512,8 @@ def _check_supported(cfg: IcpConfig, method: str) -> None:
 
 
 def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
-                    progress: bool = True, device="cuda",
-                    return_preprocessed: bool = False,
-                    seed: int = PLANE_SEED) -> dict:
+                    progress: bool = True, return_preprocessed: bool = False,
+                    device="cuda", seed: int = PLANE_SEED) -> dict:
     """Full stage 1 on ``device``; writes the scanmatcher CSVs and the
     profile, and returns the trajectory.
 
@@ -571,8 +576,8 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
         times = np.concatenate([scan_times, np.repeat(scan_times[-1:],
                                                       mesh.size * K - n)])
         scans, overflow, n_python = load_and_preprocess_streamed(
-            euroc, times[first:first + K], cfg, method, voxel_size, device,
-            seed=seed, first=first)
+            euroc, times[first:first + K], cfg, method, voxel_size, seed=seed,
+            device=device, first=first)
         overflow = _mesh.gather_rows(mesh, torch.as_tensor(overflow), mesh.size * K,
                                      first).cpu().numpy()[:n]
         n_python = int(_mesh.all_reduce_sum(
@@ -580,7 +585,7 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
         n_local = K
     else:
         scans, overflow, n_python = load_and_preprocess_streamed(
-            euroc, scan_times, cfg, method, voxel_size, device, seed=seed)
+            euroc, scan_times, cfg, method, voxel_size, seed=seed, device=device)
         n_local = n
     _sync(device)
     preprocess_seconds = time.time() - t_load

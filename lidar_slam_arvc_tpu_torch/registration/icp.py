@@ -87,8 +87,8 @@ class ICPResult(NamedTuple):
     transform: torch.Tensor     # (..., 4, 4) refined T mapping src into tgt
     fitness: torch.Tensor       # inlier fraction of valid source points
     inlier_rmse: torch.Tensor   # RMSE over inlier correspondences
-    iterations: torch.Tensor    # (...,) int32 iterations each pair ran
-    final_delta: torch.Tensor   # se(3) update norm of each pair's last step
+    iterations: torch.Tensor | int = 0      # (...,) int32 iterations each pair ran
+    final_delta: torch.Tensor | float = 0.0  # se(3) norm of each pair's last step
 
 
 def _gn_point_to_plane(p, n_corr, q, w):

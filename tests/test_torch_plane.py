@@ -191,7 +191,7 @@ def test_ground_draws_do_not_depend_on_the_batch(scans):
         raw[k, :m.sum()] = np.asarray(c.points)[m]
         raw_mask[k, :m.sum()] = True
     outs = [sm.preprocess_all(raw, raw_mask, IcpConfig(capacity=CAP, batch_size=b),
-                              "icp2planes", None, "cpu", seed=3)[0] for b in (2, 3)]
+                              "icp2planes", None, seed=3, device="cpu")[0] for b in (2, 3)]
     for f in ("ground_mask", "nonground_mask", "normals"):
         np.testing.assert_array_equal(getattr(outs[0], f).numpy(),
                                       getattr(outs[1], f).numpy())

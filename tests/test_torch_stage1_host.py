@@ -60,10 +60,10 @@ def test_streamed_matches_two_phase(dataset, method):
     euroc = EurocDataset(d)
     times = _times(d)
     ref, ovf_ref = sm.preprocess_all(*sm.load_scans(euroc, times, CFG.raw_capacity),
-                                     CFG, method, 0.2, "cpu")
+                                     CFG, method, 0.2, device="cpu")
     for chunk in (8, 4):
         got, ovf, n_python = sm.load_and_preprocess_streamed(
-            euroc, times, CFG, method, 0.2, "cpu", chunk_scans=chunk)
+            euroc, times, CFG, method, 0.2, device="cpu", chunk_scans=chunk)
         assert n_python == 0
         for name, a, b in zip(ref._fields, got, ref):
             if b is None:
@@ -84,11 +84,11 @@ def test_default_chunk_rounds_up_to_whole_batches(dataset, monkeypatch):
                         lambda paths, *a, **k: seen.append(len(paths)) or real(paths, *a, **k))
     cfg = IcpConfig(raw_capacity=256, capacity=128, batch_size=3)
     sm.load_and_preprocess_streamed(euroc, _times(d), cfg, "icppointpoint",
-                                    0.2, "cpu", chunk_scans=5)
+                                    0.2, device="cpu", chunk_scans=5)
     assert seen == [6, 6, 3]
     seen.clear()
     sm.load_and_preprocess_streamed(euroc, _times(d), cfg, "icppointpoint",
-                                    0.2, "cpu")
+                                    0.2, device="cpu")
     assert seen == [N_SCANS]          # 33 >= 15 scans: one chunk
 
 
@@ -99,7 +99,7 @@ def matcher_inputs(dataset):
     scan_times, _, _, odo, _ = sm.prepare_experiment_data(euroc, 0, 1.0)
     rel_odo = sm.relative_odometry(odo)
     scans, _, _ = sm.load_and_preprocess_streamed(
-        euroc, scan_times, CFG, "icppointplane", 0.2, "cpu")
+        euroc, scan_times, CFG, "icppointplane", 0.2, device="cpu")
     fused, stats = sm.match_consecutive(scans.points, scans.mask, scans.normals,
                                         rel_odo, CFG, "icppointplane",
                                         progress=False)
@@ -229,7 +229,7 @@ def test_resume_keeps_the_fpfh_group_draws(dataset, tmp_path):
     scan_times, _, _, odo, _ = sm.prepare_experiment_data(euroc, 0, 1.0)
     rel_odo = sm.relative_odometry(odo)[:8]
     scans, _, _ = sm.load_and_preprocess_streamed(
-        euroc, scan_times[:9], CFG, "fpfh", 0.2, "cpu")
+        euroc, scan_times[:9], CFG, "fpfh", 0.2, device="cpu")
     args = (scans.points, scans.mask, scans.normals, rel_odo, CFG, "fpfh")
     masks = dict(ground_mask=scans.ground_mask,
                  nonground_mask=scans.nonground_mask, progress=False)

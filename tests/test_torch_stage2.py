@@ -310,6 +310,10 @@ def test_unported_paths_raise(stage1, tmp_path):
         KeyframeStore(d, [0], method="ndt", device="cpu")
     with pytest.raises(TypeError):
         LoopCloser(None, np.zeros((2, 8, 3)))
+    # a points tensor is the array form, wrapped by KeyframeStore.from_arrays
+    closer = LoopCloser(None, torch.zeros(2, 8, 3), torch.ones(2, 8, dtype=torch.bool),
+                        torch.zeros(2, 8, 3))
+    assert isinstance(closer.store, KeyframeStore) and closer.store.loaded
     d2 = str(tmp_path / "copy")
     shutil.copytree(d, d2)
     # a mesh needs a process group of that many ranks (cli --devices N)
