@@ -23,6 +23,7 @@ from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
 from lidar_slam_arvc_tpu_torch.ops.eigh3 import smallest_eigenvector_sym3
 from lidar_slam_arvc_tpu_torch.ops.moments import ball_moments
 from lidar_slam_arvc_tpu_torch.ops.nn import radius_accumulate
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 IMPLS = ("auto", "pallas", "xla")
 
@@ -73,7 +74,8 @@ def estimate_normals(cloud: Cloud, radius: float,
         # flip so n . (viewpoint - p) >= 0 with viewpoint = sensor origin
         facing = torch.sum(normals * cloud.points, dim=-1, keepdim=True)
         normals = torch.where(facing > 0, -normals, normals)
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=normals.dtype,
-                      device=normals.device)
+    with span("sync.normals_ez"):             # a host-to-card copy
+        ez = torch.tensor([0.0, 0.0, 1.0], dtype=normals.dtype,
+                          device=normals.device)
     normals = torch.where((count < 3.0)[..., None], ez, normals)
     return Cloud(points=cloud.points, mask=cloud.mask, normals=normals)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 # key packing: 11 bits x | 11 bits y | 10 bits z  (32-bit total)
 _BITS_X, _BITS_Y, _BITS_Z = 11, 11, 10
@@ -29,13 +30,15 @@ def addressable_extent(voxel_size: float) -> tuple[float, float]:
 def voxel_keys(points: torch.Tensor, valid: torch.Tensor,
                voxel_size: float) -> torch.Tensor:
     """(..., N) int32 packed voxel keys; invalid points get 2**31 - 1."""
-    vsize = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
+    with span("sync.voxel_size"):             # a host-to-card copy
+        vsize = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
     masked = torch.where(valid[..., None], points, torch.inf)
     mins = masked.amin(dim=-2, keepdim=True)
     mins = torch.where(torch.isfinite(mins), mins, 0.0)
     ijk = torch.floor((points - mins) / vsize).to(torch.int32)
-    hi = torch.tensor([2 ** _BITS_X - 1, 2 ** _BITS_Y - 1, 2 ** _BITS_Z - 1],
-                      dtype=torch.int32, device=points.device)
+    with span("sync.voxel_key_bounds"):       # a host-to-card copy
+        hi = torch.tensor([2 ** _BITS_X - 1, 2 ** _BITS_Y - 1, 2 ** _BITS_Z - 1],
+                          dtype=torch.int32, device=points.device)
     ijk = torch.minimum(torch.clamp(ijk, min=0), hi)
     key = ((ijk[..., 0] << (_BITS_Y + _BITS_Z))
            | (ijk[..., 1] << _BITS_Z)

@@ -18,6 +18,7 @@ from lidar_slam_arvc_tpu_torch.geom.rotations import (  # noqa: F401 (re-exporte
     _eye3, _hat_sq, euler_to_rot, quat_to_rot, rot_to_euler, rot_to_quat, so3_exp,
     so3_hat, so3_log,
 )
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 
 def _V_matrix(w: torch.Tensor) -> torch.Tensor:
@@ -59,8 +60,9 @@ def make_transform(position: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     position = position.expand(batch + (3,))
     top = torch.cat([R, position[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(batch + (1, 4))
+    with span("sync.make_transform_row"):     # a host-to-card copy
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                              device=top.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -23,6 +23,7 @@ from lidar_slam_arvc_tpu_torch.graph.factors import (
 from lidar_slam_arvc_tpu_torch.graph.pcg import marginal_blocks_pcg, solve_graph_pcg
 from lidar_slam_arvc_tpu_torch.graph.solver import marginal_covariances, solve_graph
 from lidar_slam_arvc_tpu_torch.ops._cuda import torch_device
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 SOLVERS = ("auto", "dense", "pcg", "schur")
 # the largest pose capacity that optimize(solver="auto") solves densely;
@@ -162,7 +163,8 @@ class PoseGraph:
                                 **{k: getattr(self, k) for k in FACTOR_FIELDS})
 
     def _poses_on_device(self) -> torch.Tensor:
-        return torch.as_tensor(self.poses, device=self.device)
+        with span("sync.poses_upload"):      # a host-to-card copy
+            return torch.as_tensor(self.poses, device=self.device)
 
     def auto_solver(self) -> str:
         """The solver optimize(solver='auto') picks: schur under a mesh of
@@ -200,7 +202,8 @@ class PoseGraph:
             poses, cost = run(self._poses_on_device(), self._factor_data(),
                               self.n_poses, max_iterations=max_iterations,
                               stats=self.stats)
-        self.poses = poses.cpu().numpy()
+        with span("sync.poses_download"):
+            self.poses = poses.cpu().numpy()
         self.stats["optimizations"] += 1
         self.stats["host_syncs"] += 1
         return float(cost)
@@ -224,14 +227,17 @@ class PoseGraph:
         indices=None: every active pose, by chunked dense back-substitution;
         with indices (K,): those poses only, by matrix-free PCG.  Returns
         (n_poses, 6, 6) or (K, 6, 6) float64."""
-        if indices is None:
-            cov = marginal_covariances(self._poses_on_device(),
-                                       self._factor_data(), self.n_poses)
-            return cov[: self.n_poses].cpu().numpy().astype(np.float64)
-        cov = marginal_blocks_pcg(self._poses_on_device(), self._factor_data(),
-                                  self.n_poses, np.asarray(indices),
-                                  stats=self.stats)
-        return cov.cpu().numpy().astype(np.float64)
+        with span("graph.marginals"):
+            if indices is None:
+                cov = marginal_covariances(self._poses_on_device(),
+                                           self._factor_data(), self.n_poses)
+                cov = cov[: self.n_poses]
+            else:
+                cov = marginal_blocks_pcg(self._poses_on_device(), self._factor_data(),
+                                          self.n_poses, np.asarray(indices),
+                                          stats=self.stats)
+            with span("sync.marginals_download"):
+                return cov.cpu().numpy().astype(np.float64)
 
     # ----------------------------------------------------------- queries
 

@@ -25,6 +25,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
+
 
 class NoiseSigmas(NamedTuple):
     """Diagonal factor sigmas (reference graphSLAM.py:13-53)."""
@@ -154,11 +156,13 @@ def make_factor_data(capacity: int, device, bt_i, bt_j, bt_T, bt_winv,
     grad_ix = _gather_table(np.concatenate([i, j, g, p]), N)
 
     def f32(a, shape):
-        return torch.as_tensor(np.asarray(a, dtype=np.float32).reshape(shape),
-                               device=device, dtype=dtype)
+        with span("sync.factor_upload"):    # a host-to-card copy
+            return torch.as_tensor(np.asarray(a, dtype=np.float32).reshape(shape),
+                                   device=device, dtype=dtype)
 
     def i64(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+        with span("sync.factor_upload"):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
     return FactorData(
         bt_i=i64(i), bt_j=i64(j),

@@ -28,6 +28,7 @@ from lidar_slam_arvc_tpu_torch.graph.factors import FactorData
 from lidar_slam_arvc_tpu_torch.graph.solver import (
     Linearized, _mv, _retract, graph_cost, inv_or_nan, linearize, lm_schedule,
 )
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 PRECONDS = ("auto", "bcr", "tridiag", "jacobi")
 
@@ -121,27 +122,32 @@ def conjugate_gradient(hx, apply_M, b: torch.Tensor, max_iters: int,
     thresh = rtol * rtol * torch.clamp(_dot(b, b), min=1e-30)
     k = torch.zeros(rz.shape, dtype=torch.int64, device=b.device)
     n_iter = 0
-    for _ in range(max_iters):
-        live = (k < max_iters) & (_dot(r, r) > thresh)
-        n_iter += 1
-        if not bool(live.any()):
-            break
-        Hp = hx(p)
-        alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
-        x_new = x + alpha[..., None, None] * p
-        r_new = r - alpha[..., None, None] * Hp
-        z = apply_M(r_new)
-        rz_new = _dot(r_new, z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p_new = z + beta[..., None, None] * p
-        m = live[..., None, None]
-        x = torch.where(m, x_new, x)
-        r = torch.where(m, r_new, r)
-        p = torch.where(m, p_new, p)
-        rz = torch.where(live, rz_new, rz)
-        k = k + live.to(k.dtype)
+    with span("graph.cg"):
+        for _ in range(max_iters):
+            live = (k < max_iters) & (_dot(r, r) > thresh)
+            n_iter += 1
+            with span("sync.cg_live"):
+                go = bool(live.any())
+            if not go:
+                break
+            Hp = hx(p)
+            alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
+            x_new = x + alpha[..., None, None] * p
+            r_new = r - alpha[..., None, None] * Hp
+            z = apply_M(r_new)
+            rz_new = _dot(r_new, z)
+            beta = rz_new / torch.clamp(rz, min=1e-30)
+            p_new = z + beta[..., None, None] * p
+            m = live[..., None, None]
+            x = torch.where(m, x_new, x)
+            r = torch.where(m, r_new, r)
+            p = torch.where(m, p_new, p)
+            rz = torch.where(live, rz_new, rz)
+            k = k + live.to(k.dtype)
     if stats is not None:
-        stats["cg_iterations"] = stats.get("cg_iterations", 0) + int(k.max())
+        with span("sync.cg_iterations"):
+            cg_iterations = int(k.max())
+        stats["cg_iterations"] = stats.get("cg_iterations", 0) + cg_iterations
         stats["host_syncs"] = stats.get("host_syncs", 0) + n_iter + 1
     return x
 
@@ -180,12 +186,14 @@ def marginal_blocks_pcg(poses, factors: FactorData, n_active: int, indices,
     (undamped H, the cyclic-reduction or tridiagonal preconditioner), all
     K*6 columns in one batch.  Returns (K, 6, 6)."""
     lin = linearize(poses, factors, n_active)
-    idx = torch.as_tensor(indices, dtype=torch.int64, device=poses.device)
+    with span("sync.marginal_indices"):      # a host-to-card copy
+        idx = torch.as_tensor(indices, dtype=torch.int64, device=poses.device)
     K = idx.shape[0]
     rows = idx.repeat_interleave(6)
     comp = torch.arange(6, device=poses.device).repeat(K)
     b = poses.new_zeros((K * 6,) + lin.grad.shape)
-    b[torch.arange(K * 6, device=poses.device), rows, comp] = 1.0
+    with span("sync.marginal_unit_columns"):  # the 1.0 copied to the card
+        b[torch.arange(K * 6, device=poses.device), rows, comp] = 1.0
     x = conjugate_gradient(_hx_operator(lin, factors, 0.0),
                            _preconditioner(lin, factors, 0.0, "auto"), b,
                            max_cg_iters, rtol, stats)

@@ -26,6 +26,7 @@ from lidar_slam_arvc_tpu_torch.geom.se3 import (
 )
 from lidar_slam_arvc_tpu_torch.graph.factors import FactorData
 from lidar_slam_arvc_tpu_torch.ops.nn import require_f32_matmul
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 
 def _mv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -220,12 +221,15 @@ def lm_schedule(step, poses: torch.Tensor, cost0: torch.Tensor,
     in ``stats["host_syncs"]``.  A float64 solve keeps its schedule in
     float64.  Returns (poses, cost as a numpy scalar)."""
     f32 = np.float64 if cost0.dtype == torch.float64 else np.float32
-    cost = f32(cost0.item())
+    with span("sync.lm_cost"):
+        cost = f32(cost0.item())
     lam, tol = f32(lam0), f32(tol)
     n_steps = 0
     for _ in range(max_iterations):
-        cand, cand_cost = step(poses, float(lam))
-        c = f32(cand_cost.item())
+        with span("graph.lm_step"):
+            cand, cand_cost = step(poses, float(lam))
+            with span("sync.lm_cost"):
+                c = f32(cand_cost.item())
         n_steps += 1
         if np.isfinite(c) and c < cost:
             improved = f32(cost - c)

@@ -50,6 +50,7 @@ from lidar_slam_arvc_tpu_torch.registration.global_reg import (
 )
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch, two_planes_pairs
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 # the fpfh RANSAC's seed on every call, as the reference's PRNGKey(0)
 FPFH_SEED = 0
@@ -128,9 +129,10 @@ class KeyframeStore:
             first = mesh.rank * k
             times = np.concatenate([times, np.repeat(
                 times[-1:], mesh.size * k - len(times))])[first:first + k]
-        scans, overflow, _ = load_and_preprocess_streamed(
-            EurocDataset(self.directory), times, self.cfg, self.method,
-            self.voxel_size, seed=seed, device=self.device, first=first)
+        with span("store.load"):
+            scans, overflow, _ = load_and_preprocess_streamed(
+                EurocDataset(self.directory), times, self.cfg, self.method,
+                self.voxel_size, seed=seed, device=self.device, first=first)
         self.points, self.mask, self.normals = scans.points, scans.mask, scans.normals
         self.ground_mask, self.nonground_mask = scans.ground_mask, scans.nonground_mask
         self.n_loaded_locally = len(times)
@@ -234,9 +236,10 @@ class KeyframeStore:
             return _mesh.broadcast(self.mesh, torch.as_tensor(
                 T, device=self.mesh.device)).cpu().numpy()
         dev = self.points.device
-        ti = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
-        si = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
-        seeds = torch.as_tensor(np.asarray(seeds, dtype=np.float32), device=dev)
+        with span("sync.loop_pair_upload"):  # host-to-card copies
+            ti = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
+            si = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
+            seeds = torch.as_tensor(np.asarray(seeds, dtype=np.float32), device=dev)
         params = self._icp_params()
         if self.method == "icp2planes":
             res = two_planes_pairs(self.points, self.normals, self.ground_mask,
@@ -257,7 +260,8 @@ class KeyframeStore:
                             self.mask[ti], self.normals[ti], seeds, params,
                             "point_to_point" if self.method == "icppointpoint"
                             else "point_to_plane")
-        return res.transform.cpu().numpy().astype(np.float64)
+        with span("sync.loop_transforms"):
+            return res.transform.cpu().numpy().astype(np.float64)
 
     # ------------------------------------------------------------- memory
 

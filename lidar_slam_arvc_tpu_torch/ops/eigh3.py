@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
+
 
 def eigvals_sym3(A: torch.Tensor) -> torch.Tensor:
     """Eigenvalues of symmetric (..., 3, 3) matrices, ascending."""
@@ -71,5 +73,6 @@ def smallest_eigenvector_sym3(A: torch.Tensor) -> torch.Tensor:
     v = torch.where(best01[..., None], c01,
                     torch.where(best02[..., None], c02, c12))
     nv = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    with span("sync.eigh3_ez"):               # a host-to-card copy
+        ez = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
     return torch.where(nv > 1e-18, v / torch.clamp(nv, min=1e-30), ez)

@@ -50,7 +50,7 @@ from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh
 from lidar_slam_arvc_tpu_torch.pipeline.preprocess import PLANE_SEED
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
-from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter
+from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter, span
 from lidar_slam_arvc_tpu_torch.viz.plots import (
     plot_gps_comparison, plot_trajectory_with_uncertainty,
 )
@@ -198,7 +198,8 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
         if mesh is not None and not store.sharded:
             store.shard(mesh)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with span("sync.store_loaded"):
+                torch.cuda.synchronize(device)
         closer = LoopCloser(graph, store, distance_backwards=distance_backwards,
                             radius_threshold=radius_threshold)
     store_seconds = time.time() - t_store0
@@ -232,7 +233,8 @@ def _run_graphslam(directory, cfg, progress, preprocessed, device, builds):
                                    or (len(sm_rel) - i) < 2):
             # no re-optimise here: the reference only plots at this point
             # (run_graphSLAM.py:259-268); closures act at the next optimise
-            loop_closures.append(closer.loop_closing_triangle(i, n_triplets))
+            with span("loop.round"):
+                loop_closures.append(closer.loop_closing_triangle(i, n_triplets))
         if progress:
             print(f"\rgraphSLAM step {i + 1}/{len(sm_rel)} "
                   f"({(i + 1) / max(time.time() - t0, 1e-9):.1f} steps/s)",

@@ -67,7 +67,8 @@ from lidar_slam_arvc_tpu_torch.registration.global_reg import (
 )
 from lidar_slam_arvc_tpu_torch.registration.icp import ICPParams, icp_batch, two_planes_pairs
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
-from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter
+from lidar_slam_arvc_tpu_torch.utils import profiling
+from lidar_slam_arvc_tpu_torch.utils.profiling import BuildCounter, StageTimer, span
 
 # the methods whose pairs split over a mesh (the reference's scanmatcher.py:358-360)
 MESH_METHODS = ("icppointplane", "icppointpoint")
@@ -145,18 +146,21 @@ def _preprocess_into(outs: list, pts, mask, first: int, cfg: IcpConfig,
         gens = ([seeded_generator(seed, first + i)
                  for i in range(b0, min(b0 + B, n))]
                 if method in SPLIT_METHODS else None)
-        outs.append(preprocess_batch(pts[b0:b0 + B], mask[b0:b0 + B], cfg,
-                                     method, voxel_size, gens))
+        with span("preprocess.batch"):
+            outs.append(preprocess_batch(pts[b0:b0 + B], mask[b0:b0 + B], cfg,
+                                         method, voxel_size, gens))
 
 
 def _assemble(outs: list, cfg: IcpConfig):
-    """The whole stack from its batches, and the host (N,) count of voxels
-    dropped by the capacity per scan (the one host read of the stage)."""
+    """The whole stack from its batches, the host (N,) count of voxels
+    dropped by the capacity per scan and the host (N,) count of each
+    scan's valid points (the one host read of the stage)."""
     scans = PreprocessedScans(*(
         None if outs[0][k] is None else torch.cat([o[k] for o in outs])
         for k in range(len(outs[0]))))
     n = scans.points.shape[0]
-    n_vox = scans.n_voxels.cpu().numpy()
+    with span("sync.voxel_counts"):
+        n_vox = scans.n_voxels.cpu().numpy()
     overflow = np.maximum(n_vox - cfg.capacity, 0)
     if overflow.any():
         # never silent: the tail voxels beyond the capacity were dropped
@@ -164,7 +168,7 @@ def _assemble(outs: list, cfg: IcpConfig):
               f"capacity {cfg.capacity} (max occupied voxels "
               f"{int(n_vox.max())}, {int(overflow.sum())} voxels dropped) — "
               f"raise IcpConfig.capacity or coarsen voxel_size")
-    return scans, overflow
+    return scans, overflow, np.minimum(n_vox, cfg.capacity)
 
 
 def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
@@ -182,7 +186,7 @@ def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
         _preprocess_into(outs, torch.from_numpy(raw_pts[b0:b0 + B]).to(device),
                          torch.from_numpy(raw_mask[b0:b0 + B]).to(device), b0,
                          cfg, method, voxel_size, seed)
-    return _assemble(outs, cfg)
+    return _assemble(outs, cfg)[:2]
 
 
 def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
@@ -203,7 +207,19 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
     ``preprocess_all``.  ``first``: the index in the whole sequence of
     ``scan_times[0]`` (a rank's block), which keys the draws.  Returns
     (``PreprocessedScans``, overflow (N,), number of files parsed in
-    Python)."""
+    Python).
+
+    Counts (``utils.profiling.counts``): the decode thread's seconds in
+    ``pcd_decode_seconds``, this thread's seconds blocked on it (span
+    ``pcd.wait``) in ``pcd_wait_seconds``."""
+    return _streamed(euroc, scan_times, cfg, method, voxel_size, seed,
+                     chunk_scans, device, first)[:3]
+
+
+def _streamed(euroc, scan_times, cfg, method, voxel_size, seed, chunk_scans,
+              device, first):
+    """``load_and_preprocess_streamed``, and the host (N,) count of each
+    scan's valid points last."""
     device = _cuda.torch_device(device, "load_and_preprocess_streamed")
     B = cfg.batch_size
     if chunk_scans is None:
@@ -214,6 +230,7 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
     pinned = device.type == "cuda"
 
     def load(lo):
+        t0 = time.perf_counter()
         part = paths[lo:lo + chunk_scans]
         buf = torch.empty((len(part), raw, 3), dtype=torch.float32,
                           pin_memory=pinned)
@@ -221,6 +238,7 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
         # pinned as well: a pageable copy would wait for the device
         cnt = torch.empty(len(part), dtype=torch.int64, pin_memory=pinned)
         cnt.numpy()[:] = counts
+        profiling.count("pcd_decode_seconds", time.perf_counter() - t0)
         return buf, cnt, n_python
 
     outs = []
@@ -228,7 +246,10 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(load, 0)
         for lo in range(0, len(paths), chunk_scans):
-            buf, counts, k = fut.result()
+            t0 = time.perf_counter()
+            with span("pcd.wait"):
+                buf, counts, k = fut.result()
+            profiling.count("pcd_wait_seconds", time.perf_counter() - t0)
             if lo + chunk_scans < len(paths):
                 fut = ex.submit(load, lo + chunk_scans)
             n_python += k
@@ -237,8 +258,8 @@ def load_and_preprocess_streamed(euroc: EurocDataset, scan_times,
                     < counts.to(device, non_blocking=True)[:, None])
             _preprocess_into(outs, pts, mask, first + lo, cfg, method,
                              voxel_size, seed)
-    scans, overflow = _assemble(outs, cfg)
-    return scans, overflow, n_python
+    scans, overflow, n_valid = _assemble(outs, cfg)
+    return scans, overflow, n_python, n_valid
 
 
 def _by_groups(n_pairs: int, batch: int, register):
@@ -254,12 +275,27 @@ def _by_groups(n_pairs: int, batch: int, register):
 
 
 def _icp_register(points, mask, normals, idx_src, idx_tgt, seeds,
-                  params: ICPParams, method: str):
-    """``register(g, sl)``: the ICP of the listed pairs ``sl``."""
+                  params: ICPParams, method: str, valid=None):
+    """``register(g, sl)``: the ICP of the listed pairs ``sl``.
+
+    ``valid``: host (P,) valid source and (P,) valid target points of each
+    pair, or None; given, every ICP step's K1 sweep adds the group's
+    source x target slots to ``k1_pairs_swept`` and its valid source x
+    valid target pairs to ``k1_pairs_valid`` (``utils.profiling.counts``)."""
+    C = points.shape[1]
+    S = -(-C // params.source_stride)
+
     def register(_, sl):
         si, ti = idx_src[sl], idx_tgt[sl]
-        return icp_batch(points[si], mask[si], points[ti], mask[ti],
-                         normals[ti], seeds[sl], params, method)
+        steps = profiling.counts["icp_steps"]
+        res = icp_batch(points[si], mask[si], points[ti], mask[ti],
+                        normals[ti], seeds[sl], params, method)
+        if valid is not None:
+            trips = profiling.counts["icp_steps"] - steps
+            vs, vt = valid[0][sl], valid[1][sl]
+            profiling.count("k1_pairs_swept", trips * len(vs) * S * C)
+            profiling.count("k1_pairs_valid", trips * int(np.dot(vs, vt)))
+        return res
     return register
 
 
@@ -421,7 +457,8 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                       progress: bool = True,
                       checkpoint_path: str | None = None,
                       checkpoint_key: int | None = None,
-                      mesh=None, n_scans: int | None = None):
+                      mesh=None, n_scans: int | None = None,
+                      n_valid: np.ndarray | None = None):
     """Batched registration of consecutive pairs under ``method``
     (icp2planes and fpfh need the scans' ground/non-ground masks).
 
@@ -441,6 +478,10 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
     in the reference; with ``cfg.shard_scans`` the stacks are this rank's
     block of the sharded stack (``sharded_rows`` scans) and ``n_scans``
     the whole sequence's count.  Every rank returns the whole result.
+
+    ``n_valid``: the host (N,) count of each scan's valid points (a
+    prefix of its mask); with it, the plain ICP methods without a mesh
+    split count K1's swept and valid pairs (``_icp_register``).
     """
     n_scans = points.shape[0] if n_scans is None else n_scans
     n_pairs = n_scans - 1
@@ -464,7 +505,9 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                + (", sharded scan stack" if cfg.shard_scans else ""))
     else:
         idx_src, idx_tgt, seeds = consecutive_pairs(n_scans, B, T_seeds)
-        si, ti, sd = (torch.from_numpy(a).to(dev) for a in (idx_src, idx_tgt, seeds))
+        with span("sync.pair_upload"):       # host-to-card copies
+            si, ti, sd = (torch.from_numpy(a).to(dev)
+                          for a in (idx_src, idx_tgt, seeds))
         if method in SPLIT_METHODS and (ground_mask is None or nonground_mask is None):
             raise ValueError(f"method {method!r} needs the ground/non-ground masks")
         if method == "icp2planes":
@@ -479,15 +522,21 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
                 return fpfh_pairs(points, mask, normals, nonground_mask, feats,
                                   si[sl], ti[sl], gp, torch.Generator().manual_seed(g))
         else:
+            valid = None
+            if n_valid is not None:
+                n_valid = np.asarray(n_valid, dtype=np.int64)
+                stride = params.source_stride
+                valid = (-(-n_valid[idx_src] // stride), n_valid[idx_tgt])
             register = _icp_register(points, mask, normals, si, ti, sd, params,
-                                     icp_method)
+                                     icp_method, valid)
         if checkpoint_path is not None:
             T_all, fit, iters, delta, bad = _match_checkpointed(
                 register, len(si) // B, n_pairs, B, seeds, cfg, params,
                 checkpoint_path, checkpoint_key, progress)
         else:
-            T_all, fit, iters, delta = (t.cpu().numpy()[:n_pairs] for t in
-                                        _by_groups(len(si), B, register))
+            res = _by_groups(len(si), B, register)
+            with span("sync.icp_results"):
+                T_all, fit, iters, delta = (t.cpu().numpy()[:n_pairs] for t in res)
         tag = f"groups of {B}"
     if checkpoint_path is None:
         T_all = T_all.astype(np.float64)
@@ -498,11 +547,6 @@ def match_consecutive(points, mask, normals, T_seeds: np.ndarray,
         print(f"scanmatch pairs {n_pairs}/{n_pairs} ({tag} on {dev})")
     return T_all, {"fitness": fit, "iterations": iters,
                    "final_delta": delta, "fell_back": bad}
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _check_supported(cfg: IcpConfig, method: str) -> None:
@@ -541,54 +585,57 @@ def run_scanmatcher(directory: str, cfg: IcpConfig | None = None,
 def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
                      seed, builds):
     device = _cuda.torch_device(device, "run_scanmatcher")
-    euroc = EurocDataset(directory)
-    sm_params = euroc.read_scanmatcher_parameters()
-    start_index = sm_params.get("start_index", 0)
-    delta_time = sm_params.get("delta_time", 0.5)
-    voxel_size = sm_params.get("voxel_size", None)
-    method = sm_params.get("method", "icppointplane")
-    if cfg is None:
-        cfg = IcpConfig()
-    _check_supported(cfg, method)
-    mesh = _mesh.resolve_mesh(cfg.mesh_devices)
-    group = _mesh.data_mesh()
-    if group.size > 1 and cfg.checkpoint_batches > 0:
-        # a checkpoint per rank would race on one file (the reference
-        # turns it off under several processes too)
-        cfg = dataclasses.replace(cfg, checkpoint_batches=0)
-    if method not in MESH_METHODS:
-        mesh = None           # the other methods run whole in every rank
-    shard = mesh is not None and cfg.shard_scans
+    timer = StageTimer()
+    with timer.stage("scanmatch.setup", sync=device):
+        euroc = EurocDataset(directory)
+        sm_params = euroc.read_scanmatcher_parameters()
+        start_index = sm_params.get("start_index", 0)
+        delta_time = sm_params.get("delta_time", 0.5)
+        voxel_size = sm_params.get("voxel_size", None)
+        method = sm_params.get("method", "icppointplane")
+        if cfg is None:
+            cfg = IcpConfig()
+        _check_supported(cfg, method)
+        mesh = _mesh.resolve_mesh(cfg.mesh_devices)
+        group = _mesh.data_mesh()
+        if group.size > 1 and cfg.checkpoint_batches > 0:
+            # a checkpoint per rank would race on one file (the reference
+            # turns it off under several processes too)
+            cfg = dataclasses.replace(cfg, checkpoint_batches=0)
+        if method not in MESH_METHODS:
+            mesh = None           # the other methods run whole in every rank
+        shard = mesh is not None and cfg.shard_scans
 
-    scan_times, _, _, odo, _ = prepare_experiment_data(
-        euroc, start_index, delta_time)
-    rel_odo = relative_odometry(odo)
-    n = len(scan_times)
+        scan_times, _, _, odo, _ = prepare_experiment_data(
+            euroc, start_index, delta_time)
+        rel_odo = relative_odometry(odo)
+        n = len(scan_times)
     launches0 = dict(_cuda.launch_counts)
     collectives0 = copy.deepcopy(_mesh.collective_counts)
+    counts0 = dict(profiling.counts)
 
-    t_load = time.time()
-    if shard:
-        # this rank's block of the stack padded with copies of the last
-        # scan; the draws keep each scan's index in the whole sequence
-        K = sharded_rows(n, mesh.size, cfg.batch_size)
-        first = mesh.rank * K
-        times = np.concatenate([scan_times, np.repeat(scan_times[-1:],
-                                                      mesh.size * K - n)])
-        scans, overflow, n_python = load_and_preprocess_streamed(
-            euroc, times[first:first + K], cfg, method, voxel_size, seed=seed,
-            device=device, first=first)
-        overflow = _mesh.gather_rows(mesh, torch.as_tensor(overflow), mesh.size * K,
-                                     first).cpu().numpy()[:n]
-        n_python = int(_mesh.all_reduce_sum(
-            mesh, torch.tensor([n_python], device=mesh.device)).item())
-        n_local = K
-    else:
-        scans, overflow, n_python = load_and_preprocess_streamed(
-            euroc, scan_times, cfg, method, voxel_size, seed=seed, device=device)
-        n_local = n
-    _sync(device)
-    preprocess_seconds = time.time() - t_load
+    n_valid = None
+    with timer.stage("scanmatch.load_preprocess", sync=device):
+        if shard:
+            # this rank's block of the stack padded with copies of the last
+            # scan; the draws keep each scan's index in the whole sequence
+            K = sharded_rows(n, mesh.size, cfg.batch_size)
+            first = mesh.rank * K
+            times = np.concatenate([scan_times, np.repeat(scan_times[-1:],
+                                                          mesh.size * K - n)])
+            scans, overflow, n_python = load_and_preprocess_streamed(
+                euroc, times[first:first + K], cfg, method, voxel_size, seed=seed,
+                device=device, first=first)
+            overflow = _mesh.gather_rows(mesh, torch.as_tensor(overflow), mesh.size * K,
+                                         first).cpu().numpy()[:n]
+            n_python = int(_mesh.all_reduce_sum(
+                mesh, torch.tensor([n_python], device=mesh.device)).item())
+            n_local = K
+        else:
+            scans, overflow, n_python, n_valid = _streamed(
+                euroc, scan_times, cfg, method, voxel_size, seed, None, device, 0)
+            n_local = n
+    preprocess_seconds = timer.seconds["scanmatch.load_preprocess"]
     if progress:
         print(f"loaded+preprocessed {n_local} scans "
               f"{'on this rank ' if shard else ''}in {preprocess_seconds:.2f}s")
@@ -598,22 +645,20 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
         os.makedirs(f"{directory}/robot0/scanmatcher", exist_ok=True)
         ck_path = f"{directory}/robot0/scanmatcher/checkpoint.npz"
         ck_key = int(np.int64(np.sum(scan_times)) & 0x7FFFFFFF)
-    t_icp = time.time()
-    rel_sm, stats = match_consecutive(
-        scans.points, scans.mask, scans.normals, rel_odo, cfg, method,
-        progress=progress, ground_mask=scans.ground_mask,
-        nonground_mask=scans.nonground_mask, checkpoint_path=ck_path,
-        checkpoint_key=ck_key, mesh=mesh, n_scans=n)
-    icp_seconds = time.time() - t_icp
+    # K1's pairs are counted on one device under the plain ICP methods
+    k1_counted = mesh is None and method in MESH_METHODS
+    with timer.stage("scanmatch.icp", sync=device):
+        rel_sm, stats = match_consecutive(
+            scans.points, scans.mask, scans.normals, rel_odo, cfg, method,
+            progress=progress, ground_mask=scans.ground_mask,
+            nonground_mask=scans.nonground_mask, checkpoint_path=ck_path,
+            checkpoint_key=ck_key, mesh=mesh, n_scans=n,
+            n_valid=n_valid if k1_counted else None)
+    icp_seconds = timer.seconds["scanmatch.icp"]
+    counted = profiling.counts_since(counts0)
     if ck_path is not None:
         # stage complete: the mid-stage checkpoint goes
         os.remove(ck_path)
-
-    # fold to global in float64 on the host
-    T_global = np.empty((len(rel_sm) + 1, 4, 4))
-    T_global[0] = np.eye(4)
-    for i, Tij in enumerate(rel_sm):
-        T_global[i + 1] = T_global[i] @ Tij
 
     iters = stats["iterations"]
     iters = iters[iters >= 0]          # pairs resumed from a checkpoint: -1
@@ -641,6 +686,13 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
         "kernel_launches": {k: v - launches0[k]
                             for k, v in _cuda.launch_counts.items()},
         "collectives": _mesh.counts_since(collectives0),
+        # host counts (utils.profiling.counts): ICP steps over every
+        # group, the PCD wait and decode, K1's swept and valid pairs
+        "icp_steps": int(counted["icp_steps"]),
+        "pcd_wait_seconds": round(counted["pcd_wait_seconds"], 4),
+        "pcd_decode_seconds": round(counted["pcd_decode_seconds"], 4),
+        "k1_pairs_swept": int(counted["k1_pairs_swept"]) if k1_counted else None,
+        "k1_pairs_valid": int(counted["k1_pairs_valid"]) if k1_counted else None,
         **builds.report(),
     }
 
@@ -659,8 +711,14 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
                  "scanmatcher_global.csv")] + [
                      f"{directory}/robot0/viz/scanmatcher_profile.json"]
 
-    # one writer; the other ranks wait for it, as stage 2 reads the CSVs
-    written = _mesh.write_once(group, write)
+    with timer.stage("scanmatch.write", sync=device):
+        # fold to global in float64 on the host
+        T_global = np.empty((len(rel_sm) + 1, 4, 4))
+        T_global[0] = np.eye(4)
+        for i, Tij in enumerate(rel_sm):
+            T_global[i + 1] = T_global[i] @ Tij
+        # one writer; the other ranks wait for it, as stage 2 reads the CSVs
+        written = _mesh.write_once(group, write)
     out = {"scan_times": scan_times, "relative": rel_sm,
            "global": T_global, "icp_seconds": icp_seconds,
            "frames_per_second": profile["frames_per_second"],

@@ -30,6 +30,11 @@ Here that is a per-pair ``active`` mask applied with ``torch.where``; each
 pair's ``iterations`` and ``final_delta`` are its own.  The loop reads one
 boolean per iteration from the device (``active.any()``).
 
+Spans (``utils.profiling.span``, recorded only under a profiler): the call
+is ``icp.group``, each trip of the loop ``icp.step`` (counted in
+``utils.profiling.counts["icp_steps"]``), inside it ``icp.correspond``,
+``icp.assemble`` and ``icp.solve``, and each host read a ``sync.*`` span.
+
 Residuals/Jacobians:
   point-to-plane: r = n . (p' - q),      J = [p' x n, n]
   point-to-point: r = p' - q (3-vec),    J = [-[p']_x, I3]
@@ -51,6 +56,8 @@ from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_vals, nn_searc
 from lidar_slam_arvc_tpu_torch.ops.nn_pruned import (
     morton_sort, nn_search_pruned_presorted, pad_rows,
 )
+from lidar_slam_arvc_tpu_torch.utils import profiling
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 NN_IMPLS = ("auto", "pallas", "vpu_t", "vpu", "vpu2", "mxu", "vpu_tq",
             "pruned", "xla")
@@ -165,6 +172,13 @@ def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
     Shapes: src (B, S, 3) + (B, S); tgt (B, T, 3) + (B, T); tgt_normals
     (B, T, 3) or None; T_inits (B, 4, 4).  All on one device.
     """
+    with span("icp.group"):
+        return _icp_batch(src_points, src_masks, tgt_points, tgt_masks,
+                          tgt_normals, T_inits, params, method)
+
+
+def _icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
+               T_inits, params: ICPParams, method: str) -> ICPResult:
     if method not in ("point_to_plane", "point_to_point"):
         raise ValueError(f"unknown ICP method {method!r}")
     if method == "point_to_plane" and tgt_normals is None:
@@ -203,34 +217,37 @@ def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
 
     def make_step(pts, mask_f):
         def step(T):
-            p = transform_points(T, pts)
-            d2, q, n_corr = correspond(p)
-            gate, fit, rmse = metrics(d2, mask_f)
-            w = gate
-            if params.robust:
-                # Welsch IRLS: scale from the gated mean-square distance,
-                # sharpened once by reweighting (no new NN sweep)
-                sigma2 = (torch.sum(w * d2, dim=-1)
-                          / torch.clamp(torch.sum(w, dim=-1), min=1.0))
-                w1 = w * torch.exp(-d2 / torch.clamp(2.0 * sigma2, min=1e-8)[..., None])
-                sigma2 = (torch.sum(w1 * d2, dim=-1)
-                          / torch.clamp(torch.sum(w1, dim=-1), min=1e-6))
-                w = w * torch.exp(-d2 / torch.clamp(2.0 * sigma2, min=1e-8)[..., None])
-            if method == "point_to_plane":
-                H, b = _gn_point_to_plane(p, n_corr, q, w)
-            else:
-                H, b = _gn_point_to_point(p, q, w)
-            # Tikhonov floor: degenerate geometry must not blow up the solve
-            trace = H.diagonal(dim1=-2, dim2=-1).sum(-1)
-            damp = 1e-6 * (trace / 6.0 + 1.0)
-            eye = torch.eye(6, dtype=H.dtype, device=H.device)
-            xi = torch.linalg.solve_ex(H + damp[..., None, None] * eye,
-                                       b[..., None])[0][..., 0]
-            # a non-finite solve keeps T unchanged
-            ok = torch.isfinite(xi).all(dim=-1, keepdim=True)
-            xi = torch.where(ok, xi, torch.zeros_like(xi))
-            return (compose(se3_exp(xi), T), torch.linalg.vector_norm(xi, dim=-1),
-                    fit, rmse)
+            with span("icp.correspond"):
+                p = transform_points(T, pts)
+                d2, q, n_corr = correspond(p)
+            with span("icp.assemble"):
+                gate, fit, rmse = metrics(d2, mask_f)
+                w = gate
+                if params.robust:
+                    # Welsch IRLS: scale from the gated mean-square distance,
+                    # sharpened once by reweighting (no new NN sweep)
+                    sigma2 = (torch.sum(w * d2, dim=-1)
+                              / torch.clamp(torch.sum(w, dim=-1), min=1.0))
+                    w1 = w * torch.exp(-d2 / torch.clamp(2.0 * sigma2, min=1e-8)[..., None])
+                    sigma2 = (torch.sum(w1 * d2, dim=-1)
+                              / torch.clamp(torch.sum(w1, dim=-1), min=1e-6))
+                    w = w * torch.exp(-d2 / torch.clamp(2.0 * sigma2, min=1e-8)[..., None])
+                if method == "point_to_plane":
+                    H, b = _gn_point_to_plane(p, n_corr, q, w)
+                else:
+                    H, b = _gn_point_to_point(p, q, w)
+                # Tikhonov floor: degenerate geometry must not blow up the solve
+                trace = H.diagonal(dim1=-2, dim2=-1).sum(-1)
+                damp = 1e-6 * (trace / 6.0 + 1.0)
+                eye = torch.eye(6, dtype=H.dtype, device=H.device)
+            with span("icp.solve"):
+                xi = torch.linalg.solve_ex(H + damp[..., None, None] * eye,
+                                           b[..., None])[0][..., 0]
+                # a non-finite solve keeps T unchanged
+                ok = torch.isfinite(xi).all(dim=-1, keepdim=True)
+                xi = torch.where(ok, xi, torch.zeros_like(xi))
+                return (compose(se3_exp(xi), T), torch.linalg.vector_norm(xi, dim=-1),
+                        fit, rmse)
         return step
 
     def run_phase(T, step, max_iters, tol):
@@ -242,18 +259,26 @@ def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
             it = torch.zeros(B, dtype=torch.int32, device=dev)
             delta = torch.full((B,), torch.inf, dtype=torch.float32, device=dev)
             active = (it < max_iters) & (delta > tol)
-            while bool(active.any()):
-                T_new, d, f, r = step(T)
-                T = torch.where(active[:, None, None], T_new, T)
-                delta = torch.where(active, d, delta)
-                fit = torch.where(active, f, fit)
-                rmse = torch.where(active, r, rmse)
-                it = it + active.to(torch.int32)
-                active = (it < max_iters) & (delta > tol)
+            with span("sync.icp_converged"):
+                go = bool(active.any())
+            while go:
+                with span("icp.step"):
+                    T_new, d, f, r = step(T)
+                    T = torch.where(active[:, None, None], T_new, T)
+                    delta = torch.where(active, d, delta)
+                    fit = torch.where(active, f, fit)
+                    rmse = torch.where(active, r, rmse)
+                    it = it + active.to(torch.int32)
+                    active = (it < max_iters) & (delta > tol)
+                    with span("sync.icp_converged"):
+                        go = bool(active.any())
+                profiling.count("icp_steps", 1)
             return T, it, delta, fit, rmse
         delta = torch.zeros(B, dtype=torch.float32, device=dev)
         for _ in range(max_iters):
-            T, delta, fit, rmse = step(T)
+            with span("icp.step"):
+                T, delta, fit, rmse = step(T)
+            profiling.count("icp_steps", 1)
         return (T, torch.full((B,), max_iters, dtype=torch.int32, device=dev),
                 delta, fit, rmse)
 

@@ -3,7 +3,19 @@
 Counterpart of ``lidar_slam_arvc_tpu/utils/profiling.py``:
 
 * :class:`StageTimer`: named wall-clock counters with items/s, the same
-  report and ``dump`` JSON as the reference's.
+  report and ``dump`` JSON as the reference's; each stage is a
+  :func:`span`, and with ``sync`` (a CUDA device) its seconds include the
+  device's work.
+* :func:`span`: a named ``torch.profiler`` span while a profiler runs, a
+  shared null context otherwise.  Its events are CPU ``user_annotation``
+  events of the same trace as the card's kernels and runtime calls.
+  The port's names: ``scanmatch.*`` (stage 1's phases), ``pcd.wait``,
+  ``preprocess.batch``, ``icp.*`` (``registration/icp.py``), ``graph.*``,
+  ``loop.round``, ``store.load`` (stage 2), and ``sync.<site>`` around
+  each call that makes the host wait for the card.
+* :data:`counts` and :func:`count`: host counters of the stage-1 path
+  (ICP steps, K1 pairs swept and valid, PCD wait and decode seconds),
+  read as deltas around a stage like ``ops._cuda.launch_counts``.
 * :class:`BuildCounter`: in place of the reference's ``CompileCounter``
   (distinct XLA programs compiled), the native libraries a stage built
   (the CUDA kernels, ``ops/_cuda.py``; the PCD parser, ``io/native.py``)
@@ -24,6 +36,39 @@ import threading
 import time
 from collections import defaultdict
 
+import torch
+
+# what ``span`` returns while no profiler runs: one shared object, so a
+# span costs a flag read and allocates nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs,
+    else a shared null context (a bare ``record_function`` costs ~11 us
+    even with no profiler; this ~0.6 us)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+# host counts of the stage-1 path; ``count`` adds to them from any thread
+# (the PCD decode thread among them)
+counts = {"icp_steps": 0, "k1_pairs_swept": 0, "k1_pairs_valid": 0,
+          "pcd_wait_seconds": 0.0, "pcd_decode_seconds": 0.0}
+_counts_lock = threading.Lock()
+
+
+def count(name: str, n) -> None:
+    with _counts_lock:
+        counts[name] += n
+
+
+def counts_since(before: dict) -> dict:
+    """``counts`` minus a copy taken earlier."""
+    with _counts_lock:
+        return {k: v - before[k] for k, v in counts.items()}
+
 
 class StageTimer:
     """Accumulates wall time + item counts per named stage."""
@@ -33,10 +78,17 @@ class StageTimer:
         self.items = defaultdict(int)
 
     @contextlib.contextmanager
-    def stage(self, name: str, items: int = 0):
+    def stage(self, name: str, items: int = 0, sync=None):
+        """Time the block as stage ``name`` inside a ``span(name)``.
+        ``sync``: a device; a CUDA one is synchronised before the clock is
+        read at the block's end, so the seconds include its queued work."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
+                if sync is not None and torch.device(sync).type == "cuda":
+                    with span("sync." + name):
+                        torch.cuda.synchronize(sync)
         finally:
             self.seconds[name] += time.perf_counter() - t0
             self.items[name] += items
@@ -114,7 +166,6 @@ class BuildCounter:
 def trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block into ``log_dir``
     (TensorBoard's profile plugin or chrome://tracing read it)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
