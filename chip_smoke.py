@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through fifteen phases,
+Drives ``lidar_slam_arvc_tpu_torch`` (never JAX) through sixteen phases,
 one line each, and exits non-zero on any failure:
 
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
@@ -175,7 +175,16 @@ one line each, and exits non-zero on any failure:
    equal to the sum of the store's tensors' bytes (icppointplane and
    icp2planes stores), ``load_and_preprocess(seed=0)`` bit-equal to the
    default under icp2planes (24 scans), and ``EurocDataset.path``.
-16. the last line: {"ok": true, "device": {...}}.
+16. K6 (csrc/icp_step.cu, run after phase 4) vs its plain version (the
+   ICP's eager step, ``ops.icp_step.icp_step_plain``) at the main path's
+   shape, B = 4, S = T = 32768 (the ``kitti00.stage1`` cell's capacity):
+   4 consecutive pairs of bench.py's scans voxelised into that capacity,
+   K1's correspondences, point-to-plane with robust weights.  it and
+   active equal; T, delta, fitness and RMSE each within 10x the eager f32
+   step's distance from the same step in float64 (plus 16 f32 ulps);
+   times of both, K6's bound and its launch geometry.  Phase 4's run must
+   launch K6 once per ICP step.
+17. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them and one JSON line of per-kernel results: time of
@@ -224,6 +233,7 @@ from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd  # noqa: E402
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore  # noqa: E402
 from lidar_slam_arvc_tpu_torch.loop import LoopCloser  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
+from lidar_slam_arvc_tpu_torch.ops import icp_step as k6  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
@@ -552,7 +562,7 @@ def phase_stage1(tmp, smi):
     if rows != (N_SCANS, N_SCANS - 1, N_SCANS):
         fail(f"stage 1 CSV rows {rows}, expected "
              f"({N_SCANS}, {N_SCANS - 1}, {N_SCANS})")
-    for k in ("nn_sweep", "ball_moments"):
+    for k in ("nn_sweep", "ball_moments", "icp_step"):
         if launches[k] <= 0:
             fail(f"stage 1 did not launch kernel {k}")
     euroc = EurocDataset(d)
@@ -565,6 +575,8 @@ def phase_stage1(tmp, smi):
     if prof["pairs_fallback_to_seed"] or prof["pcd_files_python_parsed"]:
         fail(f"stage 1: {prof['pairs_fallback_to_seed']} pairs fell back to "
              f"their seed, {prof['pcd_files_python_parsed']} PCDs parsed in Python")
+    if launches["icp_step"] != prof["icp_steps"]:
+        fail(f"stage 1: {launches['icp_step']} K6 launches for {prof['icp_steps']} ICP steps")
     fps_e2e = prof["pairs"] / (prof["load_preprocess_seconds"]
                                + prof["icp_seconds"])
     print(f"phase 4 stage 1 ({N_SCANS} scans x {SCAN_POINTS} points, capacity "
@@ -582,6 +594,83 @@ def phase_stage1(tmp, smi):
           f"from _build/; dataset "
           f"generated in {gen_s:.1f} s; card {smi}")
     return launches, d, info["T_gt"], err["rmse"]
+
+
+K6_CAPACITY = 32768    # the kitti00.stage1 cell's capacity: K6's main-path shape
+K6_OPS_PER_SOURCE = 100  # f32 operations a source costs K6 (point-to-plane, robust)
+
+
+def _k6_case(rng, dev):
+    """K6's main-path inputs: 4 consecutive pairs of bench.py's scans
+    voxelised into K6_CAPACITY, their normals (K2), K1's correspondences
+    from the odometry seeds, and a fresh loop state."""
+    poses = synthetic.make_trajectory(5, radius=12.0)
+    world = synthetic.make_world(rng, **WORLD)
+    raw = [from_numpy(synthetic.render_scan(world, T, rng, max_points=SCAN_POINTS),
+                      65536, device=dev) for T in poses]
+    c = Cloud(torch.stack([r.points for r in raw]), torch.stack([r.mask for r in raw]))
+    c = crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
+    c, _ = voxel_downsample_counted(c, VOXEL, out_capacity=K6_CAPACITY)
+    c = estimate_normals(c, RADIUS)
+    src, sm, tgt, tm, tn = (x.contiguous() for x in (
+        c.points[1:], c.mask[1:], c.points[:-1], c.mask[:-1], c.normals[:-1]))
+    seeds = torch.as_tensor(np.stack([np.linalg.inv(poses[i]) @ poses[i + 1]
+                                      for i in range(4)]), dtype=torch.float32, device=dev)
+    p = transform_points(seeds, src)
+    idx, d2 = nn_search(p, tgt, tm)
+    B = src.shape[0]
+    state = (seeds, torch.full((B,), torch.inf, device=dev), torch.zeros(B, device=dev),
+             torch.full((B,), torch.inf, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev))
+    return (src, p, sm.float(), d2, idx, None, None, tgt, tn), state
+
+
+def phase_k6(rng, dev):
+    """Phase 16: K6 against the eager step at the main path's shape."""
+    inputs, state = _k6_case(rng, dev)
+    kw = dict(thr2=GATE * GATE, robust=True, point_to_plane=True, max_iters=30, tol=1e-4)
+    clone = lambda st: tuple(x.clone() for x in st)  # noqa: E731
+    ref = clone(state)
+    k6.icp_step_plain(*inputs, ref, **kw)
+    ref64 = tuple(x.cpu().double() if x.is_floating_point() else x.cpu() for x in state)
+    k6.icp_step_plain(*(None if x is None else x.cpu().double() if x.is_floating_point()
+                        else x.cpu() for x in inputs), ref64, **kw)
+    got = clone(state)
+    p_next = k6.icp_step(*inputs, got, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])):
+        fail(f"phase 16 K6: it {got[4].tolist()} / active {got[5].tolist()}, the eager "
+             f"step's {ref[4].tolist()} / {ref[5].tolist()}")
+    errs = []
+    for name, g, r, r64 in zip(("T", "delta", "fit", "rmse"), got, ref, ref64):
+        e_got = float((g.cpu().double() - r64).abs().max())
+        e_ref = float((r.cpu().double() - r64).abs().max())
+        floor = 16 * float(torch.finfo(torch.float32).eps) * float(r64.abs().max())
+        if not e_got <= 10 * e_ref + floor:
+            fail(f"phase 16 K6: {name} {e_got:.3g} from float64, the eager f32 step "
+                 f"{e_ref:.3g}")
+        errs.append(f"{name} {e_got:.3g} (eager {e_ref:.3g})")
+    if not torch.equal(p_next, transform_points(got[0], inputs[0])):
+        fail("phase 16 K6: the next sources differ from transform_points of the new T")
+    src, p, mask, d2, idx, _, _, tgt, tn = inputs
+    B, S = src.shape[:2]
+    run = clone(state)
+    ms = cuda_ms(lambda: k6.icp_step(*inputs, run, **kw), 100)
+    plain = clone(state)
+    plain_ms = cuda_ms(lambda: k6.icp_step_plain(*inputs, plain, **kw), 10)
+    # each input read once (q and n gathered: 24 bytes a source), p_next written
+    bound = bound_ms(nbytes(src, p, mask, d2, idx, *state) + 24 * B * S
+                     + nbytes(p_next, *state), K6_OPS_PER_SOURCE * B * S)
+    profile_later(16, "icp_step", lambda: k6.icp_step(*inputs, run, **kw), 1)
+    g = k6.geometry(S)
+    print(f"phase 16 K6 icp_step vs plain (B={B}, S=T={S}, {int(mask.sum())} valid "
+          f"sources): it and active equal; distance from float64: " + ", ".join(errs)
+          + f"; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}); grid {g['cluster']}x{B} CTAs of {g['threads']} threads, "
+          f"cluster {g['cluster']}, {g['slice']} sources/CTA, {g['rounds']} round(s)")
+    max_err = float((got[0] - ref[0]).abs().max())
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
 
 
 def phase_k3_k4(cases):
@@ -2524,6 +2613,7 @@ def main():
     res = {"nn_sweep": phase_k1(cases), "ball_moments": phase_k2(rng, dev)}
     with tempfile.TemporaryDirectory() as tmp:
         stage1, d, T_gt, ate1 = phase_stage1(tmp, smi)
+        res["icp_step"] = phase_k6(rng, dev)
         res.update(phase_k3_k4(cases))
         res["nn_pruned"] = phase_k5(rng, dev)
         launches = phase_nn_impls(d, T_gt, dev)
@@ -2538,7 +2628,7 @@ def main():
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1
     launches.update(nn_sweep=stage1["nn_sweep"],
-                    ball_moments=stage1["ball_moments"])
+                    ball_moments=stage1["ball_moments"], icp_step=stage1["icp_step"])
     pallas = "lidar_slam_arvc_tpu/ops/"
     meta = [
         ("nn_sweep", "nn_sweep.cu", "nn_pallas.py:107"),
@@ -2548,11 +2638,12 @@ def main():
         ("nn_sweep_mxu", "nn_sweep.cu", "nn_pallas.py:246"),
         ("nn_sweep_vals", "nn_sweep_vals.cu", "nn_pallas.py:135"),
         ("nn_pruned", "nn_pruned.cu", "nn_pruned.py:85"),
+        ("icp_step", "icp_step.cu", None),     # K6 replaces no TPU kernel
     ]
     kernels = [
         {"name": key, "route": "cuda",
          "source": f"lidar_slam_arvc_tpu_torch/csrc/{src}",
-         "replaces": pallas + tpu, "launches": launches[key],
+         "replaces": tpu and pallas + tpu, "launches": launches[key],
          "max_abs_err": res[key]["max_abs_err"], "ms": res[key]["ms"],
          "plain_ms": res[key]["plain_ms"], "bound_ms": res[key]["bound_ms"],
          "bound_by": res[key]["bound_by"], "library_ms": None}

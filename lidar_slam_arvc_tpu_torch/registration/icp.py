@@ -26,32 +26,34 @@ XLA sweep there).
 
 The reference vmaps a ``lax.while_loop``: every pair freezes once its own
 update norm falls to ``convergence_tol`` and the group runs until all have.
-Here that is a per-pair ``active`` mask applied with ``torch.where``; each
-pair's ``iterations`` and ``final_delta`` are its own.  The loop reads one
-boolean per iteration from the device (``active.any()``).
+Here that is a per-pair ``active`` mask; each pair's ``iterations`` and
+``final_delta`` are its own.  The loop reads one boolean per iteration from
+the device (``active.any()``).
+
+A trip of the loop is the search, then ``ops.icp_step``, which does
+everything else the step does and writes the next trip's transformed
+sources: on a card, K6, so a trip is two hand-written kernels (K1 for the
+default ``nn_impl``) and the one host read; on the CPU its plain version,
+the eager step in plain PyTorch.  The numbers are the eager step's up to
+the order of f32 sums.
 
 Spans (``utils.profiling.span``, recorded only under a profiler): the call
 is ``icp.group``, each trip of the loop ``icp.step`` (counted in
-``utils.profiling.counts["icp_steps"]``), inside it ``icp.correspond``,
-``icp.assemble`` and ``icp.solve``, and each host read a ``sync.*`` span.
-
-Residuals/Jacobians:
-  point-to-plane: r = n . (p' - q),      J = [p' x n, n]
-  point-to-point: r = p' - q (3-vec),    J = [-[p']_x, I3]
-The 6x6 normal equations are elementwise products and sums (no matmul, so
-TF32 cannot enter).
+``utils.profiling.counts["icp_steps"]``), inside it ``icp.correspond`` and
+``icp.update`` (inside that, on the CPU, the eager step's ``icp.assemble``
+and ``icp.solve``), and each host read a ``sync.*`` span.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
-from lidar_slam_arvc_tpu_torch.geom.se3 import (
-    _hat_sq, compose, se3_exp, so3_hat, t2v, transform_from_euler, transform_points,
-)
+from lidar_slam_arvc_tpu_torch.geom.se3 import t2v, transform_from_euler, transform_points
+from lidar_slam_arvc_tpu_torch.ops.icp_step import _metrics, icp_step
 from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_vals, nn_search_xla
 from lidar_slam_arvc_tpu_torch.ops.nn_pruned import (
     morton_sort, nn_search_pruned_presorted, pad_rows,
@@ -98,34 +100,6 @@ class ICPResult(NamedTuple):
     final_delta: torch.Tensor | float = 0.0  # se(3) norm of each pair's last step
 
 
-def _gn_point_to_plane(p, n_corr, q, w):
-    """(H, b) for point-to-plane residuals; w gates correspondences."""
-    r = torch.sum(n_corr * (p - q), dim=-1)
-    J = torch.cat([torch.linalg.cross(p, n_corr), n_corr], dim=-1)  # (B,N,6)
-    Jw = J * w[..., None]
-    H = torch.sum(Jw[..., :, None] * J[..., None, :], dim=-3)
-    b = -torch.sum(Jw * r[..., None], dim=-2)
-    return H, b
-
-
-def _gn_point_to_point(p, q, w):
-    """(H, b) for 3-vector point-to-point residuals, in closed form."""
-    r = p - q
-    w1 = w[..., None]
-    # J^T r: rotation part [p]_x r = p x r, translation part r
-    bw = -torch.sum(torch.linalg.cross(p, r) * w1, dim=-2)
-    bv = -torch.sum(r * w1, dim=-2)
-    # Hww = -sum w [p]_x [p]_x, Hwv = sum w [p]_x, Hvv = sum(w) I
-    ww = w[..., None, None]
-    Hww = -torch.sum(_hat_sq(p) * ww, dim=-3)
-    Hwv = torch.sum(so3_hat(p) * ww, dim=-3)
-    Hvv = torch.sum(w, dim=-1)[..., None, None] * torch.eye(
-        3, dtype=p.dtype, device=p.device)
-    H = torch.cat([torch.cat([Hww, Hwv], dim=-1),
-                   torch.cat([Hwv.transpose(-1, -2), Hvv], dim=-1)], dim=-2)
-    return H, torch.cat([bw, bv], dim=-1)
-
-
 def _check_nn_impl(params: ICPParams) -> None:
     if params.nn_impl not in NN_IMPLS:
         raise ValueError(f"unknown nn_impl {params.nn_impl!r} "
@@ -137,31 +111,31 @@ def _check_nn_impl(params: ICPParams) -> None:
                          "break the presorted block layout)")
 
 
-def _correspondence(params: ICPParams, src_mask, tgt_points, tgt_masks,
-                    tgt_normals):
-    """correspond(p) -> (d2, q, n) for transformed sources p, by the
-    search that ``params.nn_impl`` selects.  ``src_mask`` is read by the
-    pruned search only."""
+def _search(params: ICPParams, src_mask, tgt_points, tgt_masks, tgt_normals):
+    """search(p) -> (d2, idx, q, n) for transformed sources p, by the search
+    that ``params.nn_impl`` selects: the nearest valid target's index, or
+    (K4, ``vpu_tq``) its point and normal, the other pair None.
+    ``src_mask`` is read by the pruned search only."""
     impl = params.nn_impl
 
-    def gathered(idx, d2):
-        g = idx.to(torch.int64)[..., None].expand(idx.shape + (3,))
-        return d2, torch.gather(tgt_points, 1, g), torch.gather(tgt_normals, 1, g)
+    def by_index(idx, d2):
+        return d2, idx, None, None
 
     if impl == "vpu_tq":
-        return lambda p: nn_search_vals(p.contiguous(), tgt_points, tgt_masks,
-                                        tgt_normals)
+        def by_value(p):
+            d2, q, n = nn_search_vals(p.contiguous(), tgt_points, tgt_masks, tgt_normals)
+            return d2, None, q, n
+        return by_value
     if impl == "xla":
-        return lambda p: gathered(*nn_search_xla(p, tgt_points, tgt_masks))
+        return lambda p: by_index(*nn_search_xla(p, tgt_points, tgt_masks))
     if impl == "pruned":
         sb = min(512, params.src_block)
         tb = min(512, params.tgt_block)
         gate = params.max_correspondence_distance
-        return lambda p: gathered(*nn_search_pruned_presorted(
+        return lambda p: by_index(*nn_search_pruned_presorted(
             p.contiguous(), src_mask, tgt_points, tgt_masks, gate, sb, tb))
     form = "vpu_t" if impl in ("auto", "pallas") else impl
-    return lambda p: gathered(*nn_search(p.contiguous(), tgt_points, tgt_masks,
-                                         form))
+    return lambda p: by_index(*nn_search(p.contiguous(), tgt_points, tgt_masks, form))
 
 
 def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
@@ -204,102 +178,74 @@ def _icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
     src_mask = src_mask.contiguous()
     src_mask_f = src_mask.to(src_pts.dtype)
     thr2 = params.max_correspondence_distance ** 2
-    correspond = _correspondence(params, src_mask, tgt_points.contiguous(),
-                                 tgt_masks.contiguous(), tgt_normals.contiguous())
+    tgt_points = tgt_points.contiguous()
+    tgt_normals = tgt_normals.contiguous()
+    search = _search(params, src_mask, tgt_points, tgt_masks.contiguous(), tgt_normals)
+    converge = params.convergence_tol > 0
 
-    def metrics(d2, mask_f):
-        gate = mask_f * (d2 <= thr2).to(mask_f.dtype)
-        n_src = torch.clamp(torch.sum(mask_f, dim=-1), min=1.0)
-        n_in = torch.sum(gate, dim=-1)
-        rmse = torch.sqrt(torch.sum(d2 * gate, dim=-1)
-                          / torch.clamp(n_in, min=1.0))
-        return gate, n_in / n_src, rmse
-
-    def make_step(pts, mask_f):
-        def step(T):
-            with span("icp.correspond"):
-                p = transform_points(T, pts)
-                d2, q, n_corr = correspond(p)
-            with span("icp.assemble"):
-                gate, fit, rmse = metrics(d2, mask_f)
-                w = gate
-                if params.robust:
-                    # Welsch IRLS: scale from the gated mean-square distance,
-                    # sharpened once by reweighting (no new NN sweep)
-                    sigma2 = (torch.sum(w * d2, dim=-1)
-                              / torch.clamp(torch.sum(w, dim=-1), min=1.0))
-                    w1 = w * torch.exp(-d2 / torch.clamp(2.0 * sigma2, min=1e-8)[..., None])
-                    sigma2 = (torch.sum(w1 * d2, dim=-1)
-                              / torch.clamp(torch.sum(w1, dim=-1), min=1e-6))
-                    w = w * torch.exp(-d2 / torch.clamp(2.0 * sigma2, min=1e-8)[..., None])
-                if method == "point_to_plane":
-                    H, b = _gn_point_to_plane(p, n_corr, q, w)
-                else:
-                    H, b = _gn_point_to_point(p, q, w)
-                # Tikhonov floor: degenerate geometry must not blow up the solve
-                trace = H.diagonal(dim1=-2, dim2=-1).sum(-1)
-                damp = 1e-6 * (trace / 6.0 + 1.0)
-                eye = torch.eye(6, dtype=H.dtype, device=H.device)
-            with span("icp.solve"):
-                xi = torch.linalg.solve_ex(H + damp[..., None, None] * eye,
-                                           b[..., None])[0][..., 0]
-                # a non-finite solve keeps T unchanged
-                ok = torch.isfinite(xi).all(dim=-1, keepdim=True)
-                xi = torch.where(ok, xi, torch.zeros_like(xi))
-                return (compose(se3_exp(xi), T), torch.linalg.vector_norm(xi, dim=-1),
-                        fit, rmse)
-        return step
-
-    def run_phase(T, step, max_iters, tol):
+    def run_phase(T, pts, mask_f, max_iters, tol):
+        """Each trip is the search and ``icp_step``, which updates the state
+        (T, delta, fit, rmse, it, active) in place and returns the sources
+        under the new T.  With ``convergence_tol`` 0 every pair steps
+        ``max_iters`` times and nothing is read back (``tol`` -inf keeps
+        every pair active to its last step).  Returns (T, it, delta, fit,
+        rmse)."""
         B = T.shape[0]
         dev = T.device
+        if not converge:
+            tol = -math.inf
+        T = T.clone(memory_format=torch.contiguous_format)
         fit = torch.zeros(B, dtype=torch.float32, device=dev)
         rmse = torch.full((B,), torch.inf, dtype=torch.float32, device=dev)
-        if params.convergence_tol > 0:
-            it = torch.zeros(B, dtype=torch.int32, device=dev)
-            delta = torch.full((B,), torch.inf, dtype=torch.float32, device=dev)
-            active = (it < max_iters) & (delta > tol)
+        it = torch.zeros(B, dtype=torch.int32, device=dev)
+        delta = torch.full((B,), torch.inf if converge else 0.0, dtype=torch.float32,
+                           device=dev)
+        active = (it < max_iters) & (delta > tol)
+        state = (T, delta, fit, rmse, it, active)
+        pts = pts.contiguous()
+        mask_f = mask_f.contiguous()
+        p = transform_points(T, pts)
+        if converge:
             with span("sync.icp_converged"):
                 go = bool(active.any())
-            while go:
-                with span("icp.step"):
-                    T_new, d, f, r = step(T)
-                    T = torch.where(active[:, None, None], T_new, T)
-                    delta = torch.where(active, d, delta)
-                    fit = torch.where(active, f, fit)
-                    rmse = torch.where(active, r, rmse)
-                    it = it + active.to(torch.int32)
-                    active = (it < max_iters) & (delta > tol)
+        else:
+            go = max_iters > 0
+        trips = 0
+        while go:
+            with span("icp.step"):
+                with span("icp.correspond"):
+                    d2, idx, q, n = search(p)
+                with span("icp.update"):
+                    p = icp_step(pts, p, mask_f, d2, idx, q, n, tgt_points, tgt_normals,
+                                 state, thr2=thr2, robust=params.robust,
+                                 point_to_plane=method == "point_to_plane",
+                                 max_iters=max_iters, tol=tol)
+                trips += 1
+                if converge:
                     with span("sync.icp_converged"):
                         go = bool(active.any())
-                profiling.count("icp_steps", 1)
-            return T, it, delta, fit, rmse
-        delta = torch.zeros(B, dtype=torch.float32, device=dev)
-        for _ in range(max_iters):
-            with span("icp.step"):
-                T, delta, fit, rmse = step(T)
+                else:
+                    go = trips < max_iters
             profiling.count("icp_steps", 1)
-        return (T, torch.full((B,), max_iters, dtype=torch.int32, device=dev),
-                delta, fit, rmse)
+        return T, it, delta, fit, rmse
 
     T = T_inits.to(torch.float32)
     iters = torch.zeros(T.shape[0], dtype=torch.int32, device=T.device)
     if params.coarse_factor > 1 and params.coarse_iterations > 0:
         f = params.coarse_factor
         T, it_c, _, _, _ = run_phase(
-            T, make_step(src_pts[:, ::f], src_mask_f[:, ::f]),
+            T, src_pts[:, ::f], src_mask_f[:, ::f],
             params.coarse_iterations, 10.0 * params.convergence_tol)
         iters = iters + it_c
     T, it_f, final_delta, fitness, rmse = run_phase(
-        T, make_step(src_pts, src_mask_f), params.max_iterations,
-        params.convergence_tol)
+        T, src_pts, src_mask_f, params.max_iterations, params.convergence_tol)
     iters = iters + it_f
     # zero iterations read as converged, not as the +inf initialiser
     final_delta = torch.where(it_f > 0, final_delta, 0.0)
 
     if params.exact_metrics or params.max_iterations == 0:
-        d2, _, _ = correspond(transform_points(T, src_pts))
-        _, fitness, rmse = metrics(d2, src_mask_f)
+        d2 = search(transform_points(T, src_pts))[0]
+        _, fitness, rmse = _metrics(d2, src_mask_f, thr2)
     return ICPResult(transform=T, fitness=fitness, inlier_rmse=rmse,
                      iterations=iters, final_delta=final_delta)
 
