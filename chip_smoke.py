@@ -182,8 +182,20 @@ one line each, and exits non-zero on any failure:
    K1's correspondences, point-to-plane with robust weights.  it and
    active equal; T, delta, fitness and RMSE each within 10x the eager f32
    step's distance from the same step in float64 (plus 16 f32 ulps);
-   times of both, K6's bound and its launch geometry.  Phase 4's run must
-   launch K6 once per ICP step.
+   times of both, K6's bound and its launch geometry.  Then the same at a
+   whole scan's shape, B = 4, S = T = 65536 (the ``nclt-full.stage1``
+   cell's: ~60,000-point scans compacted at full resolution, K2 normals
+   at 0.3 m), where K6 loads its sources in two register rounds.  Phase
+   4's run must launch K6 once per ICP step.  K7 (csrc/normal_solve.cu)
+   against its plain version on the CPU (``eigh3.resolved_normals_plain``)
+   on the covariances of the first 4 scans of each case (B = 4, Q = 32768
+   voxelised and 65536 whole), over the rows with 3 or more neighbours
+   (``estimate_normals`` gives the others +z): every row within
+   1 - OFF_F64 in |cos| of the host's float64 solve; the rows the host replaced, the card's
+   float64 normal within 5e-7, all but 1% of them; the rows both kept
+   whose two small eigenvalues lie a tenth of the largest apart, within
+   1e-5; times of K7 and of its plain version on the card, its bound.
+   Phase 4's run must launch K7.
 17. the last line: {"ok": true, "device": {...}}.
 
 Before the last line it prints the card's name and power limit as
@@ -221,6 +233,7 @@ from lidar_slam_arvc_tpu_torch.cloud import (  # noqa: E402
     to_numpy, voxel_downsample, voxel_downsample_counted)
 from lidar_slam_arvc_tpu_torch.cloud.cloud import pad_numpy  # noqa: E402
 from lidar_slam_arvc_tpu_torch.cloud.fpfh import compute_fpfh  # noqa: E402
+from lidar_slam_arvc_tpu_torch.cloud.normals import _cov_from_moments  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom import hostmath  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom import se3 as geom_se3  # noqa: E402
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points  # noqa: E402
@@ -232,7 +245,7 @@ from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset  # noqa: E402
 from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd  # noqa: E402
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore  # noqa: E402
 from lidar_slam_arvc_tpu_torch.loop import LoopCloser  # noqa: E402
-from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned  # noqa: E402
+from lidar_slam_arvc_tpu_torch.ops import _cuda, eigh3, nn_pruned  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops import icp_step as k6  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
@@ -562,7 +575,7 @@ def phase_stage1(tmp, smi):
     if rows != (N_SCANS, N_SCANS - 1, N_SCANS):
         fail(f"stage 1 CSV rows {rows}, expected "
              f"({N_SCANS}, {N_SCANS - 1}, {N_SCANS})")
-    for k in ("nn_sweep", "ball_moments", "icp_step"):
+    for k in ("nn_sweep", "ball_moments", "icp_step", "normal_solve"):
         if launches[k] <= 0:
             fail(f"stage 1 did not launch kernel {k}")
     euroc = EurocDataset(d)
@@ -597,21 +610,39 @@ def phase_stage1(tmp, smi):
 
 
 K6_CAPACITY = 32768    # the kitti00.stage1 cell's capacity: K6's main-path shape
+K6_WHOLE_SCAN = 65536  # the nclt-full.stage1 cell's: whole scans, two register rounds
 K6_OPS_PER_SOURCE = 100  # f32 operations a source costs K6 (point-to-plane, robust)
+# K7: ~110 f32 operations a row and ~150 float64 ones, at half the f32 rate
+K7_OPS_PER_ROW = 410
+K7_F64_ATOL = 5e-7     # the card's and the host's float64 normals (last-bit acos/cos)
+K7_F32_ATOL = 1e-5     # f32 normals of a spectrum whose small eigenvalues lie apart
+K7_SPLIT_SHARE = 0.01  # replaced rows the card may keep (f32 forms either side of the cut)
 
 
-def _k6_case(rng, dev):
-    """K6's main-path inputs: 4 consecutive pairs of bench.py's scans
-    voxelised into K6_CAPACITY, their normals (K2), K1's correspondences
-    from the odometry seeds, and a fresh loop state."""
+def _k6_case(rng, dev, capacity: int, voxel):
+    """K6's inputs at ``capacity``: 4 consecutive pairs of scans voxelised
+    into it (``voxel`` None: ~60,000-point scans of a denser world kept
+    whole, as at full resolution), their normals (K2, K7), K1's
+    correspondences from the odometry seeds, and a fresh loop state; then
+    the 5 preprocessed scans and their normal radius."""
     poses = synthetic.make_trajectory(5, radius=12.0)
-    world = synthetic.make_world(rng, **WORLD)
-    raw = [from_numpy(synthetic.render_scan(world, T, rng, max_points=SCAN_POINTS),
-                      65536, device=dev) for T in poses]
+    if voxel is None:
+        world = synthetic.make_world(rng, extent=30.0, n_ground=150000, n_pillars=40,
+                                     pillar_pts=2500)
+        scans = [synthetic.render_scan(world, T, rng, max_points=60000) for T in poses]
+    else:
+        world = synthetic.make_world(rng, **WORLD)
+        scans = [synthetic.render_scan(world, T, rng, max_points=SCAN_POINTS) for T in poses]
+    raw = [from_numpy(x, 65536, device=dev) for x in scans]
     c = Cloud(torch.stack([r.points for r in raw]), torch.stack([r.mask for r in raw]))
     c = crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
-    c, _ = voxel_downsample_counted(c, VOXEL, out_capacity=K6_CAPACITY)
-    c = estimate_normals(c, RADIUS)
+    if voxel is None:
+        c, _ = compact_counted(c, out_capacity=capacity)
+        radius = 0.3
+    else:
+        c, _ = voxel_downsample_counted(c, voxel, out_capacity=capacity)
+        radius = RADIUS
+    c = estimate_normals(c, radius)
     src, sm, tgt, tm, tn = (x.contiguous() for x in (
         c.points[1:], c.mask[1:], c.points[:-1], c.mask[:-1], c.normals[:-1]))
     seeds = torch.as_tensor(np.stack([np.linalg.inv(poses[i]) @ poses[i + 1]
@@ -622,12 +653,12 @@ def _k6_case(rng, dev):
     state = (seeds, torch.full((B,), torch.inf, device=dev), torch.zeros(B, device=dev),
              torch.full((B,), torch.inf, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
              torch.ones(B, dtype=torch.bool, device=dev))
-    return (src, p, sm.float(), d2, idx, None, None, tgt, tn), state
+    return (src, p, sm.float(), d2, idx, None, None, tgt, tn), state, (c, radius)
 
 
-def phase_k6(rng, dev):
-    """Phase 16: K6 against the eager step at the main path's shape."""
-    inputs, state = _k6_case(rng, dev)
+def _k6_check(inputs, state, label: str):
+    """K6 against the eager step on one case; prints its line and returns
+    (K6 ms a call, eager ms, bound ms, what bounds it)."""
     kw = dict(thr2=GATE * GATE, robust=True, point_to_plane=True, max_iters=30, tol=1e-4)
     clone = lambda st: tuple(x.clone() for x in st)  # noqa: E731
     ref = clone(state)
@@ -639,19 +670,19 @@ def phase_k6(rng, dev):
     p_next = k6.icp_step(*inputs, got, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])):
-        fail(f"phase 16 K6: it {got[4].tolist()} / active {got[5].tolist()}, the eager "
-             f"step's {ref[4].tolist()} / {ref[5].tolist()}")
+        fail(f"phase 16 K6 {label}: it {got[4].tolist()} / active {got[5].tolist()}, the "
+             f"eager step's {ref[4].tolist()} / {ref[5].tolist()}")
     errs = []
     for name, g, r, r64 in zip(("T", "delta", "fit", "rmse"), got, ref, ref64):
         e_got = float((g.cpu().double() - r64).abs().max())
         e_ref = float((r.cpu().double() - r64).abs().max())
         floor = 16 * float(torch.finfo(torch.float32).eps) * float(r64.abs().max())
         if not e_got <= 10 * e_ref + floor:
-            fail(f"phase 16 K6: {name} {e_got:.3g} from float64, the eager f32 step "
+            fail(f"phase 16 K6 {label}: {name} {e_got:.3g} from float64, the eager f32 step "
                  f"{e_ref:.3g}")
         errs.append(f"{name} {e_got:.3g} (eager {e_ref:.3g})")
     if not torch.equal(p_next, transform_points(got[0], inputs[0])):
-        fail("phase 16 K6: the next sources differ from transform_points of the new T")
+        fail(f"phase 16 K6 {label}: the next sources differ from transform_points of the new T")
     src, p, mask, d2, idx, _, _, tgt, tn = inputs
     B, S = src.shape[:2]
     run = clone(state)
@@ -661,16 +692,115 @@ def phase_k6(rng, dev):
     # each input read once (q and n gathered: 24 bytes a source), p_next written
     bound = bound_ms(nbytes(src, p, mask, d2, idx, *state) + 24 * B * S
                      + nbytes(p_next, *state), K6_OPS_PER_SOURCE * B * S)
-    profile_later(16, "icp_step", lambda: k6.icp_step(*inputs, run, **kw), 1)
+    profile_later(16, f"icp_step {label}", lambda: k6.icp_step(*inputs, run, **kw), 1)
     g = k6.geometry(S)
-    print(f"phase 16 K6 icp_step vs plain (B={B}, S=T={S}, {int(mask.sum())} valid "
+    print(f"phase 16 K6 icp_step vs plain {label} (B={B}, S=T={S}, {int(mask.sum())} valid "
           f"sources): it and active equal; distance from float64: " + ", ".join(errs)
           + f"; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
           f"({bound[1]}); grid {g['cluster']}x{B} CTAs of {g['threads']} threads, "
           f"cluster {g['cluster']}, {g['slice']} sources/CTA, {g['rounds']} round(s)")
-    max_err = float((got[0] - ref[0]).abs().max())
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+    return float((got[0] - ref[0]).abs().max()), ms, plain_ms, bound
+
+
+def _k7_check(c, radius: float, label: str) -> dict:
+    """K7 against its plain version on the CPU, on the covariances of the
+    first 4 of a case's scans (K2's moments, as ``estimate_normals`` makes
+    them), over the rows ``estimate_normals`` keeps: valid, with 3 or more
+    ball neighbours (the others get +z; a ball of 1-2 points has two
+    equal small eigenvalues, so any vector of their plane is its float64
+    solve, and the card's and the host's differ there by up to 90
+    degrees).  Where the host's float64 closed form itself misses
+    LAPACK's eigenvector by more than OFF_F64 (two small eigenvalues too
+    close for it), the card's normal must be a smallest eigenvector: its
+    Rayleigh quotient within lambda_1 - lambda_0 + 2 OFF_F64 (lambda_2 -
+    lambda_0) of lambda_0.  Every other row within 1 - OFF_F64 in |cos|
+    of the host's float64 solve; the rows the host replaced, replaced on the card too
+    and equal to the host's float64 normal within K7_F64_ATOL (a wrong
+    float64 solve fails that), all but K7_SPLIT_SHARE of them (the f32
+    forms can fall either side of the threshold: the card's acosf and
+    cosf are not the host's); the rows both kept, where the two small
+    eigenvalues lie a tenth of the largest apart, within K7_F32_ATOL of
+    the host's (a wrong f32 solve fails that).  Prints its line; returns
+    the kernels line's entry."""
+    points, mask = c.points[:4].contiguous(), c.mask[:4].contiguous()
+    count, s1, s2 = ball_moments(points, points, mask, float(radius), query_mask=mask)
+    cov = _cov_from_moments(count, s1, s2)
+    got = eigh3.resolved_normals(cov)
+    torch.cuda.synchronize()
+    host = cov.cpu()
+    used = mask.cpu() & (count.cpu() >= 3)
+    ref = eigh3.resolved_normals_plain(host)[used]
+    f32 = eigh3.smallest_eigenvector_sym3(host)[used]
+    exact = eigh3.smallest_eigenvector_sym3_f64(host)[used]
+    g = got.cpu()[used]
+    A = host[used].double()
+    ev, vec = torch.linalg.eigh(A)
+    # rows whose float64 closed form misses LAPACK's eigenvector (two small
+    # eigenvalues too close for it): held instead to be eigenvectors, by
+    # their Rayleigh quotient's excess over the smallest eigenvalue
+    ill = (exact * vec[..., 0]).sum(-1).abs() < 1 - eigh3.OFF_F64
+    excess = (g.double()[..., None, :] @ A @ g.double()[..., :, None])[..., 0, 0] - ev[..., 0]
+    room = (ev[..., 1] - ev[..., 0]) + 2 * eigh3.OFF_F64 * (ev[..., 2] - ev[..., 0]) \
+        + 1e-6 * ev[..., 2].abs()
+    if bool((ill & (excess > room)).any()):
+        i = int(torch.nonzero(ill & (excess > room))[0])
+        fail(f"phase 16 K7 {label}: a row the float64 closed form cannot resolve is no "
+             f"smallest eigenvector on the card: x^T A x - lambda_min {float(excess[i]):.3g} "
+             f"over its room {float(room[i]):.3g}; eigenvalues {ev[i].tolist()}, card "
+             f"{g[i].tolist()}")
+    cos = torch.where(ill, 1.0, (g.double() * exact).sum(-1).abs())
+    worst = float(cos.min())
+    if not worst >= 1 - eigh3.OFF_F64 - 1e-7:
+        i = int(cos.argmin())
+        fail(f"phase 16 K7 {label}: a row at |cos| {worst} of the float64 solve, below "
+             f"1 - {eigh3.OFF_F64}: count {float(count.cpu()[used][i])}, covariance "
+             f"{host[used][i].flatten().tolist()}, card {g[i].tolist()}, host float64 "
+             f"{exact[i].tolist()}, host f32 {f32[i].tolist()}")
+    replaced = ~torch.eq(ref, f32).all(-1) & ~ill
+    near = (g - exact.float()).abs().amax(-1) <= K7_F64_ATOL
+    split = int((replaced & ~near).sum())
+    if split > K7_SPLIT_SHARE * int(replaced.sum()):
+        fail(f"phase 16 K7 {label}: {split} of the {int(replaced.sum())} rows the host "
+             f"replaced are not its float64 normal on the card (within {K7_F64_ATOL})")
+    apart = ((ev[..., 1] - ev[..., 0]) > 0.1 * ev[..., 2]) & ~replaced & ~ill
+    err = float((g - ref)[apart].abs().max()) if bool(apart.any()) else 0.0
+    if not err <= K7_F32_ATOL:
+        fail(f"phase 16 K7 {label}: {err:.3g} from the host's f32 normals on the "
+             f"{int(apart.sum())} rows both kept (within {K7_F32_ATOL})")
+    bitwise = int(torch.eq(g, ref).all(-1).sum())
+    ms = cuda_ms(lambda: eigh3.resolved_normals(cov), 100)
+    plain_ms = cuda_ms(lambda: eigh3.resolved_normals_plain(cov), 10)
+    rows = cov.numel() // 9
+    bound = bound_ms(nbytes(cov, got), K7_OPS_PER_ROW * rows)
+    profile_later(16, f"normal_solve {label}", lambda: eigh3.resolved_normals(cov), 1)
+    print(f"phase 16 K7 normal_solve vs plain {label} (B=4, Q={cov.shape[1]}, "
+          f"{int(mask.sum())} valid rows, {int(used.sum())} with 3 or more neighbours, "
+          f"r={radius}): {int(ill.sum())} beyond the float64 closed form, eigenvectors "
+          f"by their Rayleigh quotients; the rest within |cos| {worst:.9f} of it; the "
+          f"host replaced {int(replaced.sum())} of them, {split} kept on the card; "
+          f"{int(apart.sum())} kept rows with the small eigenvalues apart within {err:.3g} "
+          f"of the host's; {bitwise} rows bit-equal to the host's; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms (on the card), bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1]}
+
+
+def phase_k6(rng, dev):
+    """Phase 16: K6 against the eager step at the main path's shape, then
+    at a whole scan's (two register rounds); K7 against its plain version
+    on the covariances of both cases.  Returns the kernels line's entries
+    of K6 (the voxelised case) and K7 (whole scans)."""
+    inputs, state, (c, radius) = _k6_case(rng, dev, K6_CAPACITY, VOXEL)
+    max_err, ms, plain_ms, bound = _k6_check(inputs, state, "voxelised")
+    _k7_check(c, radius, "voxelised")
+    if k6.geometry(K6_WHOLE_SCAN)["rounds"] != 2:
+        fail(f"phase 16 K6: {k6.geometry(K6_WHOLE_SCAN)} at S={K6_WHOLE_SCAN}, expected "
+             "two register rounds")
+    inputs, state, (c, radius) = _k6_case(rng, dev, K6_WHOLE_SCAN, None)
+    _k6_check(inputs, state, "whole scans")
+    k7 = _k7_check(c, radius, "whole scans")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}, k7
 
 
 def phase_k3_k4(cases):
@@ -2229,8 +2359,10 @@ def _api_geometry(d, dev):
     mirror["quat_to_rot"] = np.abs(R - hostmath.quat_to_rot_np(q_csv.astype(np.float32))).max()
     qh = hostmath.rot_to_quat_np(T_glob.astype(np.float32))
     # the f32 trace's rounding, up to 4 u, moves w = sqrt(trace) / 2 by
-    # u / w: near pi (phase 4's loop) w is small
-    q_atol = API_ROT_ATOL + 4 * API_U32 / np.maximum(np.abs(qh[:, :1]), 1e-3)
+    # u / w and the vector part sqrt(1 - w^2) by u / |v|: near pi (phase
+    # 4's loop) w is small, near the identity (its straight runs) |v| is
+    q_atol = API_ROT_ATOL + 4 * API_U32 / np.maximum(np.minimum(
+        np.abs(qh[:, :1]), np.linalg.norm(qh[:, 1:], axis=-1, keepdims=True)), 1e-3)
 
     def q_err(qc):
         sign = np.where(np.sum(qc * qh, axis=-1) < 0, -1.0, 1.0)[:, None]
@@ -2250,7 +2382,7 @@ def _api_geometry(d, dev):
         1j * (yaw - hostmath.quat_to_yaw_np(q_csv.astype(np.float32)))))).max()
     if max(mirror.values()) > API_ROT_ATOL:
         fail(f"phase 14 (a): the card against the float64 host mirrors (quaternions: "
-             f"error scaled to the bound 1e-6 + 4 u / w): {mirror}")
+             f"error scaled to the bound 1e-6 + 4 u / min(w, |v|)): {mirror}")
     # phase 4's relative transforms folded on the card, against a float64
     # sequential fold of the same transforms and against the written global
     rel = torch.from_numpy(T_rel.astype(np.float32)).to(dev)
@@ -2286,7 +2418,8 @@ def _api_geometry(d, dev):
     return (f"(a) geometry: {len(geom.__all__)} names, {calls} calls card vs CPU "
             f"within the bounds (largest error / bound: "
             + ", ".join(f"{k} {v:.3g}" for k, v in top)
-            + f"); float64 host mirrors max |diff| (quaternions scaled to 1e-6 + 4 u / w) "
+            + "); float64 host mirrors max |diff| (quaternions scaled to "
+            "1e-6 + 4 u / min(w, |v|)) "
             + ", ".join(f"{k} {v:.3g}" for k, v in mirror.items())
             + f"; global_transforms of phase 4's {len(T_rel)} relative transforms (f32) "
             f"vs their float64 sequential fold {dpos:.3g} m, {drot:.3g} rad (bounds "
@@ -2613,7 +2746,7 @@ def main():
     res = {"nn_sweep": phase_k1(cases), "ball_moments": phase_k2(rng, dev)}
     with tempfile.TemporaryDirectory() as tmp:
         stage1, d, T_gt, ate1 = phase_stage1(tmp, smi)
-        res["icp_step"] = phase_k6(rng, dev)
+        res["icp_step"], res["normal_solve"] = phase_k6(rng, dev)
         res.update(phase_k3_k4(cases))
         res["nn_pruned"] = phase_k5(rng, dev)
         launches = phase_nn_impls(d, T_gt, dev)
@@ -2628,7 +2761,8 @@ def main():
     phase_profiles()
     # K1's and K2's main path is phase 4, the CLI at source stride 1
     launches.update(nn_sweep=stage1["nn_sweep"],
-                    ball_moments=stage1["ball_moments"], icp_step=stage1["icp_step"])
+                    ball_moments=stage1["ball_moments"], icp_step=stage1["icp_step"],
+                    normal_solve=stage1["normal_solve"])
     pallas = "lidar_slam_arvc_tpu/ops/"
     meta = [
         ("nn_sweep", "nn_sweep.cu", "nn_pallas.py:107"),
@@ -2639,6 +2773,7 @@ def main():
         ("nn_sweep_vals", "nn_sweep_vals.cu", "nn_pallas.py:135"),
         ("nn_pruned", "nn_pruned.cu", "nn_pruned.py:85"),
         ("icp_step", "icp_step.cu", None),     # K6 replaces no TPU kernel
+        ("normal_solve", "normal_solve.cu", None),   # nor does K7
     ]
     kernels = [
         {"name": key, "route": "cuda",

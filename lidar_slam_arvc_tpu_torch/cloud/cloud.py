@@ -106,13 +106,9 @@ def compact_counted(cloud: Cloud, out_capacity: int | None = None):
         raise ValueError(
             f"compact_counted: out_capacity {out_capacity} exceeds the "
             f"input capacity {capacity}; pad the input cloud instead")
-    # the reference's uniform selection runs in int32; keep its guard so
-    # both packages accept the same shapes
-    if capacity * out_capacity >= 2 ** 31:
-        raise ValueError(
-            f"compact_counted: capacity {capacity} x out_capacity "
-            f"{out_capacity} overflows the int32 uniform-selection "
-            "arithmetic; reduce capacities or add a chunked path")
+    # the selection computes in int64, so any capacity is exact (the JAX
+    # package selects in int32 and refuses capacity x out_capacity >= 2^31;
+    # below that the two agree bit for bit)
     valid = cloud.mask
     v64 = valid.to(torch.int64)
     n = v64.sum(-1, keepdim=True)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
-from lidar_slam_arvc_tpu_torch.ops.eigh3 import smallest_eigenvector_sym3
+from lidar_slam_arvc_tpu_torch.ops.eigh3 import resolved_normals
 from lidar_slam_arvc_tpu_torch.ops.moments import ball_moments
 from lidar_slam_arvc_tpu_torch.ops.nn import radius_accumulate
 from lidar_slam_arvc_tpu_torch.utils.profiling import span
@@ -69,7 +69,11 @@ def estimate_normals(cloud: Cloud, radius: float,
                                           cloud.mask, radius)
     else:
         raise ValueError(f"unknown impl {impl!r} ({'|'.join(IMPLS)})")
-    normals = smallest_eigenvector_sym3(_cov_from_moments(count, s1, s2))
+    # the f32 closed form cannot resolve two small eigenvalues that meet: a
+    # ball of 3-4 nearly coplanar points, common far out at full
+    # resolution, comes back up to ~90 degrees off, so such rows take the
+    # float64 solve
+    normals = resolved_normals(_cov_from_moments(count, s1, s2))
     if orient_to_viewpoint:
         # flip so n . (viewpoint - p) >= 0 with viewpoint = sensor origin
         facing = torch.sum(normals * cloud.points, dim=-1, keepdim=True)

@@ -43,7 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel since the last reset (wrappers add one per launch)
 launch_counts = {"nn_sweep": 0, "ball_moments": 0, "nn_sweep_vpu": 0,
                  "nn_sweep_vpu2": 0, "nn_sweep_mxu": 0, "nn_sweep_vals": 0,
-                 "nn_pruned": 0, "icp_step": 0}
+                 "nn_pruned": 0, "icp_step": 0, "normal_solve": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -159,6 +159,8 @@ def _load(path: str) -> ctypes.CDLL:
     lib.icp_step_launch.restype = I
     lib.icp_step_geometry.argtypes = [I, P]
     lib.icp_step_geometry.restype = None
+    lib.normal_solve_launch.argtypes = [P, P, ctypes.c_int64, ctypes.c_double, P]
+    lib.normal_solve_launch.restype = I
     return lib
 
 

@@ -16,6 +16,7 @@ import torch
 
 from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
+from lidar_slam_arvc_tpu_torch.utils.profiling import span
 
 METHODS = ("icppointplane", "icppointpoint", "icp2planes", "fpfh")
 SPLIT_METHODS = ("icp2planes", "fpfh")
@@ -67,7 +68,8 @@ def preprocess_batch(raw_pts: torch.Tensor, raw_mask: torch.Tensor,
                                                out_capacity=cfg.capacity)
     else:
         # full resolution: compact without merging
-        c, n_vox = cl.compact_counted(c, out_capacity=cfg.capacity)
+        with span("preprocess.compact"):
+            c, n_vox = cl.compact_counted(c, out_capacity=cfg.capacity)
 
     # covariance normals need several ball neighbours; on a voxelised
     # cloud that means a radius of a few voxels

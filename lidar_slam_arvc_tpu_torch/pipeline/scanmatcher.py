@@ -154,13 +154,21 @@ def _preprocess_into(outs: list, pts, mask, first: int, cfg: IcpConfig,
 def _assemble(outs: list, cfg: IcpConfig):
     """The whole stack from its batches, the host (N,) count of voxels
     dropped by the capacity per scan and the host (N,) count of each
-    scan's valid points (the one host read of the stage)."""
+    scan's valid points (the one host read of the stage).
+
+    Counts (``utils.profiling.counts``), from that read: the scans' voxels
+    (at full resolution, cropped points) before the capacity in
+    ``scan_points_valid``, and those the capacity keeps in
+    ``scan_points_kept``."""
     scans = PreprocessedScans(*(
         None if outs[0][k] is None else torch.cat([o[k] for o in outs])
         for k in range(len(outs[0]))))
     n = scans.points.shape[0]
     with span("sync.voxel_counts"):
         n_vox = scans.n_voxels.cpu().numpy()
+    kept = np.minimum(n_vox, cfg.capacity)
+    profiling.count("scan_points_valid", int(n_vox.sum(dtype=np.int64)))
+    profiling.count("scan_points_kept", int(kept.sum(dtype=np.int64)))
     overflow = np.maximum(n_vox - cfg.capacity, 0)
     if overflow.any():
         # never silent: the tail voxels beyond the capacity were dropped
@@ -168,7 +176,7 @@ def _assemble(outs: list, cfg: IcpConfig):
               f"capacity {cfg.capacity} (max occupied voxels "
               f"{int(n_vox.max())}, {int(overflow.sum())} voxels dropped) — "
               f"raise IcpConfig.capacity or coarsen voxel_size")
-    return scans, overflow, np.minimum(n_vox, cfg.capacity)
+    return scans, overflow, kept
 
 
 def preprocess_all(raw_pts: np.ndarray, raw_mask: np.ndarray, cfg: IcpConfig,
@@ -687,10 +695,13 @@ def _run_scanmatcher(directory, cfg, progress, device, return_preprocessed,
                             for k, v in _cuda.launch_counts.items()},
         "collectives": _mesh.counts_since(collectives0),
         # host counts (utils.profiling.counts): ICP steps over every
-        # group, the PCD wait and decode, K1's swept and valid pairs
+        # group, the PCD wait and decode, the scans' points before the
+        # capacity and kept, K1's swept and valid pairs
         "icp_steps": int(counted["icp_steps"]),
         "pcd_wait_seconds": round(counted["pcd_wait_seconds"], 4),
         "pcd_decode_seconds": round(counted["pcd_decode_seconds"], 4),
+        "scan_points_valid": int(counted["scan_points_valid"]),
+        "scan_points_kept": int(counted["scan_points_kept"]),
         "k1_pairs_swept": int(counted["k1_pairs_swept"]) if k1_counted else None,
         "k1_pairs_valid": int(counted["k1_pairs_valid"]) if k1_counted else None,
         **builds.report(),

@@ -10,11 +10,13 @@ Counterpart of ``lidar_slam_arvc_tpu/utils/profiling.py``:
   shared null context otherwise.  Its events are CPU ``user_annotation``
   events of the same trace as the card's kernels and runtime calls.
   The port's names: ``scanmatch.*`` (stage 1's phases), ``pcd.wait``,
-  ``preprocess.batch``, ``icp.*`` (``registration/icp.py``), ``graph.*``,
-  ``loop.round``, ``store.load`` (stage 2), and ``sync.<site>`` around
-  each call that makes the host wait for the card.
+  ``preprocess.batch``, ``preprocess.compact`` (full resolution),
+  ``icp.*`` (``registration/icp.py``), ``graph.*``, ``loop.round``,
+  ``store.load`` (stage 2), and ``sync.<site>`` around each call that
+  makes the host wait for the card.
 * :data:`counts` and :func:`count`: host counters of the stage-1 path
-  (ICP steps, K1 pairs swept and valid, PCD wait and decode seconds),
+  (ICP steps, K1 pairs swept and valid, PCD wait and decode seconds, the
+  scans' points before the capacity and those kept),
   read as deltas around a stage like ``ops._cuda.launch_counts``.
 * :class:`BuildCounter`: in place of the reference's ``CompileCounter``
   (distinct XLA programs compiled), the native libraries a stage built
@@ -55,7 +57,8 @@ def span(name: str):
 # host counts of the stage-1 path; ``count`` adds to them from any thread
 # (the PCD decode thread among them)
 counts = {"icp_steps": 0, "k1_pairs_swept": 0, "k1_pairs_valid": 0,
-          "pcd_wait_seconds": 0.0, "pcd_decode_seconds": 0.0}
+          "pcd_wait_seconds": 0.0, "pcd_decode_seconds": 0.0,
+          "scan_points_valid": 0, "scan_points_kept": 0}
 _counts_lock = threading.Lock()
 
 

@@ -297,3 +297,32 @@ def test_global_transforms_log_depth():
     finally:
         se3.compose = real
     assert len(calls) == int(np.ceil(np.log2(CHAIN)))
+
+
+def test_rot_to_quat_within_its_f32_rounding_of_the_float64_mirror():
+    """``rot_to_quat`` in f32 (the JAX package's form) against its float64
+    host mirror on the same f32 matrices: near pi, near the identity and
+    anywhere between.  The trace's rounding, up to 4 u, moves
+    w = sqrt(trace + 1) / 2 by u / w and the vector part sqrt(1 - w^2) by
+    u / |v|, so the bound is 1e-6 + 4 u / max(min(w, |v|), 1e-3), as
+    ``chip_smoke.py`` phase 14 (a) holds the card to it.  The w term alone
+    does not hold near the identity: there the vector part carries the
+    whole error (all of it below ~3e-4 rad, where trace + 1 rounds to 4)."""
+    from lidar_slam_arvc_tpu_torch.geom import hostmath
+
+    rng = np.random.default_rng(12)
+    n = 3000
+    yaw = np.concatenate([rng.uniform(-0.1, 0.1, n), rng.uniform(-np.pi, np.pi, n),
+                          np.pi - rng.uniform(0, 1e-2, n)])
+    rot = SR.from_euler("xyz", np.stack([rng.normal(scale=2e-4, size=3 * n),
+                                         rng.normal(scale=2e-4, size=3 * n), yaw], 1))
+    R = rot.as_matrix().astype(f32)
+    qh = hostmath.rot_to_quat_np(R)
+    got = P.rot_to_quat(torch.from_numpy(R)).numpy().astype(np.float64)
+    sign = np.where(np.sum(got * qh, axis=-1) < 0, -1.0, 1.0)[:, None]
+    err = np.abs(got * sign - qh)
+    u = 2.0 ** -24
+    w = np.abs(qh[:, :1])
+    v = np.linalg.norm(qh[:, 1:], axis=-1, keepdims=True)
+    assert (err <= ROT_ATOL + 4 * u / np.maximum(np.minimum(w, v), 1e-3)).all()
+    assert not (err <= ROT_ATOL + 4 * u / np.maximum(w, 1e-3)).all()

@@ -92,6 +92,27 @@ def test_compact_counted_exact(rng, out_capacity):
         cl.compact_counted(cl.Cloud(t(pts), t(mask)), 2048)
 
 
+@pytest.mark.parametrize("capacity,out_capacity", [(65536, 32767), (46340, 40000)])
+def test_compact_counted_exact_below_the_int32_limit(rng, capacity, out_capacity):
+    """Just below capacity x out_capacity = 2^31, the last shapes the JAX
+    package's int32 selection takes, the port's int64 selection keeps the
+    same points bit for bit (a 90%-valid cloud, so the stride runs).  At
+    2^31 the JAX package refuses and the port does not
+    (``test_torch_full_resolution.py`` holds the port there)."""
+    pts = rng.normal(scale=20.0, size=(capacity, 3)).astype(np.float32)
+    mask = rng.uniform(size=capacity) < 0.9
+    got, n_got = cl.compact_counted(cl.Cloud(t(pts), t(mask)), out_capacity)
+    ref, n_ref = cl_ref.compact_counted(
+        cl_ref.Cloud(jnp.asarray(pts), jnp.asarray(mask)), out_capacity)
+    np.testing.assert_array_equal(n(got.points), n(ref.points))
+    np.testing.assert_array_equal(n(got.mask), n(ref.mask))
+    assert int(n_got) == int(n_ref) > out_capacity
+    if capacity * capacity >= 2 ** 31:
+        with pytest.raises(ValueError):
+            cl_ref.compact_counted(cl_ref.Cloud(jnp.asarray(pts), jnp.asarray(mask)))
+        assert int(cl.compact_counted(cl.Cloud(t(pts), t(mask)))[0].mask.sum()) == int(n_got)
+
+
 @pytest.mark.parametrize("case", ["scan", "sign_bit", "truncated"])
 def test_voxel_downsample_matches_reference(rng, case):
     """Mask and n_voxels exact, same row order; centroids within 1e-5 m

@@ -13,14 +13,17 @@ kernel to the eager step on the card.  The file imports no JAX:
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
+from lidar_slam_arvc_tpu_torch import cloud as cl
 from lidar_slam_arvc_tpu_torch.geom.se3 import transform_points
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.icp_step import (
     _advance, _gathered, _metrics, _update, icp_step, icp_step_plain,
 )
+from lidar_slam_arvc_tpu_torch.ops.icp_step import geometry as icp_geometry
 from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_vals
 from lidar_slam_arvc_tpu_torch.ops.nn_pruned import morton_sort, pad_rows
 from lidar_slam_arvc_tpu_torch.parallel.dryrun import tiny_pair_batch
@@ -217,6 +220,22 @@ def _clone(state):
     return tuple(x.clone() for x in state)
 
 
+def _assert_near_the_eager_step(got, ref, ref64):
+    """K6's state ``got`` against the eager f32 step's ``ref`` and the
+    float64 step's ``ref64``: T, delta, fitness and RMSE each within 10x
+    the eager f32 step's distance from float64 plus 16 f32 ulps of its
+    size, non-finite entries equal; it and active exactly."""
+    for name, g, r, r64 in zip(("T", "delta", "fit", "rmse"), got, ref, ref64):
+        g, r = g.cpu().double(), r.cpu().double()
+        fin = torch.isfinite(r64)      # a frozen pair's delta and rmse are inf
+        assert torch.equal(g[~fin], r64[~fin]) and torch.equal(r[~fin], r64[~fin]), name
+        e_got = float((g - r64)[fin].abs().max())
+        e_ref = float((r - r64)[fin].abs().max())
+        floor = 16 * F32_EPS * float(r64[fin].abs().max())
+        assert e_got <= 10 * e_ref + floor, (name, e_got, e_ref)
+    assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])
+
+
 def _f64(x):
     if x is None:
         return None
@@ -250,16 +269,8 @@ def test_k6_step_matches_the_eager_step(dev, method, robust, by_value):
     got_p = icp_step(*inputs[:9], got, **kw)
     torch.cuda.synchronize()
     assert _cuda.launch_counts["icp_step"] == n0 + 1
-    for name, g, r, r64 in zip(("T", "delta", "fit", "rmse"), got, ref, ref64):
-        g, r = g.cpu().double(), r.cpu().double()
-        fin = torch.isfinite(r64)      # a frozen pair's delta and rmse are inf
-        assert torch.equal(g[~fin], r64[~fin]) and torch.equal(r[~fin], r64[~fin]), name
-        e_got = float((g - r64)[fin].abs().max())
-        e_ref = float((r - r64)[fin].abs().max())
-        floor = 16 * F32_EPS * float(r64[fin].abs().max())
-        assert e_got <= 10 * e_ref + floor, (name, e_got, e_ref)
+    _assert_near_the_eager_step(got, ref, ref64)
     T, delta, fit, rmse, it, active = got
-    assert torch.equal(it, ref[4]) and torch.equal(active, ref[5])
     assert it.tolist() == [1, 3, 1, 1, 8, 1] and not bool(active[4])
     for b in (1, 2, 3):
         assert torch.equal(T[b], T0[b]), b
@@ -267,6 +278,56 @@ def test_k6_step_matches_the_eager_step(dev, method, robust, by_value):
     assert not torch.equal(T[0], T0[0])
     assert torch.equal(T[0], T[5]) and torch.equal(got_p[0], got_p[5])
     assert torch.equal(got_p, transform_points(T, src))
+
+
+WHOLE_SCAN = 65536   # a whole HDL-32E scan at full resolution
+
+
+@pytest.mark.cuda
+def test_k6_two_register_rounds_match_the_eager_step(dev):
+    """K6 at S = T = 65536, B = 4: 8 CTAs a pair of 8192 sources, each
+    loaded in two register rounds of 4096 (the path a whole scan takes;
+    S <= 32768 is one round).  ~60,000 valid points a scan, so every CTA
+    but the last holds valid sources in both rounds.  Full-resolution
+    scans (crop, compaction, K2 normals at 0.3 m), K1's correspondences
+    from the odometry seeds, point-to-plane with robust weights, against
+    the eager step as above; the next sources bit for bit."""
+    assert icp_geometry(WHOLE_SCAN) == {"cluster": 8, "slice": 8192, "rounds": 2,
+                                        "threads": 256}
+    rng = np.random.default_rng(5)
+    world = synthetic.make_world(rng, extent=30.0, n_ground=150000, n_pillars=40,
+                                 pillar_pts=2500)
+    poses = synthetic.make_trajectory(60, radius=12.0)[:5]
+    raw = [cl.from_numpy(synthetic.render_scan(world, T, rng, max_points=60000),
+                         WHOLE_SCAN, device=dev) for T in poses]
+    c = cl.Cloud(torch.stack([r.points for r in raw]), torch.stack([r.mask for r in raw]))
+    c = cl.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
+    c, n = cl.compact_counted(c, WHOLE_SCAN)
+    c = cl.estimate_normals(c, 0.3)
+    assert int(n.min()) > 7 * 8192
+    src, sm, tgt, tm, tn = (x.contiguous() for x in (
+        c.points[1:], c.mask[1:], c.points[:-1], c.mask[:-1], c.normals[:-1]))
+    seeds = torch.as_tensor(np.stack([np.linalg.inv(poses[i]) @ poses[i + 1]
+                                      for i in range(4)]), dtype=torch.float32, device=dev)
+    p = transform_points(seeds, src)
+    idx, d2 = nn_search(p, tgt, tm)
+    B = 4
+    state = (seeds, torch.full((B,), torch.inf, device=dev), torch.zeros(B, device=dev),
+             torch.full((B,), torch.inf, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev))
+    inputs = (src, p, sm.float(), d2, idx, None, None, tgt, tn)
+    kw = dict(thr2=100.0, robust=True, point_to_plane=True, max_iters=30, tol=1e-4)
+    ref = _clone(state)
+    icp_step_plain(*inputs, ref, **kw)
+    ref64 = tuple(_f64(x) for x in state)
+    icp_step_plain(*(_f64(x) for x in inputs), ref64, **kw)
+    got = _clone(state)
+    got_p = icp_step(*inputs, got, **kw)
+    torch.cuda.synchronize()
+    _assert_near_the_eager_step(got, ref, ref64)
+    assert not torch.equal(got[0], seeds)
+    assert torch.equal(got_p, transform_points(got[0], src))
 
 
 CARD_LOOPS = [c for c in LOOPS if c[0] in ("converge", "point_to_point",

@@ -1,7 +1,8 @@
 """The port's spans and counters (``utils/profiling.py``): the span names
 of stage 1 and their nesting under ``torch.profiler``, nothing recorded
 and nothing allocated without a profiler, the ICP step and K1 pair
-counters against a recount, and ``StageTimer``'s ``sync``.
+counters against a recount, the scans' point counters and the
+compaction's span, and ``StageTimer``'s ``sync``.
 
 The file imports no JAX; its ``cuda`` test runs on a card with
 
@@ -17,6 +18,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from lidar_slam_arvc_tpu_torch.io.euroc import EurocDataset
+from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd
 from lidar_slam_arvc_tpu_torch.pipeline import scanmatcher as sm
 from lidar_slam_arvc_tpu_torch.utils import profiling, synthetic
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
@@ -147,6 +150,49 @@ def test_icp_steps_and_k1_pairs_against_a_recount(dataset, monkeypatch, stride):
     assert prof["k1_pairs_swept"] == swept
     assert 0 < valid < swept
     assert prof["pcd_wait_seconds"] >= 0 and prof["pcd_decode_seconds"] > 0
+
+
+@pytest.fixture(scope="module")
+def full_dataset(tmp_path_factory):
+    """The tracing dataset's scans at full resolution (voxel None)."""
+    d = str(tmp_path_factory.mktemp("tracing_full"))
+    synthetic.make_dataset(d, n_scans=9, seed=3, scan_points=600, world_kwargs=WORLD,
+                           scanmatcher_params={"voxel_size": None})
+    return d
+
+
+@pytest.mark.parametrize("voxel,capacity", [(0.2, 768), (None, 768), (None, 256)],
+                         ids=["voxel", "full", "full_over_capacity"])
+def test_scan_point_counters_against_a_recount(dataset, full_dataset, voxel, capacity):
+    """``scan_points_valid`` sums each scan's voxels (at full resolution its
+    cropped points) before the capacity, ``scan_points_kept`` their minimum
+    with the capacity, recounted by the benchmark's plain reference from
+    the PCD files.  At full resolution each ``preprocess_batch`` holds one
+    ``preprocess.compact`` span; with a voxel grid there is none."""
+    from slam_bench.reference import cloud as ref_cloud
+    d = dataset if voxel else full_dataset
+    cfg = dataclasses.replace(CFG, capacity=capacity)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = sm.run_scanmatcher(d, cfg, progress=False, device="cpu")
+    icp = {"raw_capacity": cfg.raw_capacity, "capacity": capacity,
+           "min_radius": cfg.min_radius, "max_radius": cfg.max_radius,
+           "min_height": cfg.min_height, "max_height": cfg.max_height}
+    n = []
+    for t in out["scan_times"]:
+        raw = torch.from_numpy(read_pcd(EurocDataset(d).scan_pcd_path(t)))
+        pts = ref_cloud.crop(raw[:cfg.raw_capacity], icp)
+        n.append(ref_cloud.voxel_centroids(pts, voxel, capacity)[1] if voxel else len(pts))
+    counted = out["profile"]
+    assert counted["scan_points_valid"] == sum(n)
+    assert counted["scan_points_kept"] == sum(min(k, capacity) for k in n)
+    assert (counted["scan_points_kept"] < counted["scan_points_valid"]) == (max(n) > capacity)
+    spans = _annotations(prof)
+    compact, batches = _of(spans, "preprocess.compact"), _of(spans, "preprocess.batch")
+    if voxel is None:
+        assert len(compact) == len(batches) > 0
+        assert all(_inside(c, batches) for c in compact)
+    else:
+        assert compact == []
 
 
 def test_counters_are_null_off_the_plain_single_device_path(tmp_path):
