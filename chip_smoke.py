@@ -8,9 +8,15 @@ one line each, and exits non-zero on any failure:
 1. device: name, power limit, TF32 flags; build the CUDA kernels (nvcc).
 2. K1 (csrc/nn_sweep.cu) vs its plain PyTorch version on the card: batch
    4 at S=2048/T=8192 and S=T=8192, plus a ragged 77 x 131 case, ~30%
-   masked targets and duplicated targets (ties).  Indices equal, d2
-   bit-equal.  Times of both and the launch geometry (grid, cluster size =
-   the split of the target axis, sources per thread).
+   masked targets and duplicated targets (ties); at the benchmark cells'
+   shapes with the source mask the ICP passes (S=T=32768 with ~64% of
+   each scan valid, S=T=65536 with 50,700-55,700 valid points, both a
+   prefix); and the mask patterns scattered, a row of masked sources, a
+   row of masked targets, and ties across sub-tiles, tiles and ranks.
+   Indices equal, d2 bit-equal.  Per shape: ms a launch, the FLOP bound
+   and the issue-rate bound (pairs scored x issue slots a pair from the
+   SASS, ``utils/sass.py``), the padding share and the launch geometry
+   (grid, cluster size, sources per thread).
 3. K2 (csrc/ball_moments.cu) vs its plain version: 4 voxelised synthetic
    scans at capacity 8192, r = 0.5, plus a ragged case.  Counts exact;
    S1/S2 within the summation-order bound ``ops.moments.summation_tolerance``;
@@ -24,8 +30,9 @@ one line each, and exits non-zero on any failure:
    and K2's launch counts, ATE < 0.2 m against ground truth, no pair fallen
    back to its seed, no PCD left to the Python parser.
 5. K3 (csrc/nn_sweep.cu, d2 forms vpu / vpu2 / mxu) and K4
-   (csrc/nn_sweep_vals.cu) vs their plain versions at phase 2's shapes:
-   indices equal, d2 bit-equal, K4's q and n equal; geometry as phase 2.
+   (csrc/nn_sweep_vals.cu) vs their plain versions at phase 2's shapes and
+   mask patterns: indices equal, d2 bit-equal, K4's q and n equal;
+   geometry as phase 2.
    Fails if the grid at B=4, S=2048, T=8192 has fewer than 132 CTAs.
 6. K5 (csrc/nn_pruned.cu) vs its plain version on 4 voxelised scan pairs
    at capacity 8192, source stride 4, gate 10 m, plus a ragged case: idx
@@ -216,6 +223,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -250,8 +258,8 @@ from lidar_slam_arvc_tpu_torch.ops import icp_step as k6  # noqa: E402
 from lidar_slam_arvc_tpu_torch.ops.moments import (  # noqa: E402
     ball_moments, ball_moments_plain, scored_pairs, summation_tolerance)
 from lidar_slam_arvc_tpu_torch.ops.nn import (  # noqa: E402
-    nn2_search, nn_search, nn_search_plain, nn_search_vals, nn_search_vals_plain,
-    radius_accumulate)
+    _nn_search, _nn_search_vals, nn2_search, nn_search, nn_search_plain, nn_search_vals,
+    nn_search_vals_plain, radius_accumulate)
 from lidar_slam_arvc_tpu_torch.parallel import _ranks  # noqa: E402
 from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh  # noqa: E402
 from lidar_slam_arvc_tpu_torch.pipeline import cli, quickstart  # noqa: E402
@@ -409,23 +417,71 @@ def phase_device():
     return name, smi
 
 
+# K1's shapes in the benchmark's stage-1 cells: (tag, B, S = T, valid
+# points a row: a prefix of each scan, drawn in [lo, hi])
+CELL_SHAPES = (("kitti", 4, 32768, (19500, 22500)),   # kitti00.stage1, ~64% valid
+               ("nclt", 4, 65536, (50700, 55700)))    # nclt-full.stage1, whole scans
+
+
 def _nn_cases(rng, dev):
-    """Phase 2's and 5's inputs: (tag, src, tgt, mask, normals) on the card,
-    B = 4, ~30% masked targets, 10% duplicated targets (ties), a quarter
-    of the sources on targets."""
+    """Phase 2's and 5's inputs: (tag, src, src_mask or None, tgt, mask,
+    normals) on the card, B = 4.  At the small shapes (ragged, S2048,
+    S8192) ~30% masked targets, 10% duplicated targets (ties), a quarter of
+    the sources on targets and no source mask.  At the cells' shapes
+    (kitti, nclt) a valid prefix in each scan and source mask.  Then the
+    mask patterns at S = 2048, T = 8192: scattered source and target masks
+    (icp2planes' ground and non-ground rows), a row with every source
+    masked, a row with every target masked, and exact ties placed across
+    sub-tiles, tiles (a cluster's ranks) and the sources of one thread."""
     cases = []
-    for tag, B, S, T in (("ragged", 4, 77, 131), ("S2048", 4, 2048, 8192),
-                         ("S8192", 4, 8192, 8192)):
+
+    def add(tag, src, smask, tgt, mask):
+        nrm = rng.normal(size=tgt.shape).astype(np.float32)
+        cases.append((tag, *(None if a is None else torch.from_numpy(a).to(dev)
+                             for a in (src, smask, tgt, mask, nrm))))
+
+    def clouds(B, S, T):
         src = cloud_points(rng, B, S)
         tgt = cloud_points(rng, B, T)
         dup = rng.integers(0, T, T // 10)
         tgt[:, rng.integers(0, T, T // 10)] = tgt[:, dup]
         src[:, : S // 4] = tgt[:, rng.integers(0, T, S // 4)]
-        mask = rng.uniform(size=(B, T)) > 0.3
-        nrm = rng.normal(size=(B, T, 3)).astype(np.float32)
-        cases.append((tag, *(torch.from_numpy(a).to(dev)
-                             for a in (src, tgt, mask, nrm))))
+        return src, tgt
+
+    for tag, B, S, T in (("ragged", 4, 77, 131), ("S2048", 4, 2048, 8192),
+                         ("S8192", 4, 8192, 8192)):
+        src, tgt = clouds(B, S, T)
+        add(tag, src, None, tgt, rng.uniform(size=(B, T)) > 0.3)
+    for tag, B, S, (lo, hi) in CELL_SHAPES:
+        src, tgt = clouds(B, S, S)
+        n = rng.integers(lo, hi + 1, size=(2, B))
+        add(tag, src, np.arange(S) < n[0][:, None], tgt, np.arange(S) < n[1][:, None])
+    B, S, T = 4, 2048, 8192
+    src, tgt = clouds(B, S, T)
+    add("scattered", src, rng.uniform(size=(B, S)) > 0.5, tgt, rng.uniform(size=(B, T)) > 0.5)
+    smask = np.arange(S) < rng.integers(S // 2, S, B)[:, None]
+    smask[1] = False
+    add("no_sources", src, smask, tgt, rng.uniform(size=(B, T)) > 0.3)
+    mask = rng.uniform(size=(B, T)) > 0.3
+    mask[2] = False
+    add("no_targets", src, np.ones((B, S), bool), tgt, mask)
+    # ties: source k sits on a point that also lies at targets a < b, both
+    # valid, with a and b in other sub-tiles (32), tiles (1024: other ranks
+    # when the cluster splits the targets) or far apart; sources k and
+    # k + 128 (one thread's rows when it takes more than one) share a pair
+    src, tgt = clouds(B, S, T)
+    mask = rng.uniform(size=(B, T)) > 0.3
+    for k, (a, b) in enumerate([(31, 32), (511, 512), (5, 7000), (1000, 1536),
+                                (4095, 4096), (100, 8191), (2047, 2048), (0, 600),
+                                (1023, 1024), (3000, 3072)]):
+        tgt[:, b] = tgt[:, a]
+        mask[:, [a, b]] = True
+        src[:, k] = src[:, k + 128] = tgt[:, a]
+    add("ties", src, None, tgt, mask)
     return cases
+
+
+SMALL_TAGS = ("ragged", "S2048", "S8192")
 
 
 def _sweep_bound(s, t, m, flops_per_pair, extra_in=(), outs=()):
@@ -434,14 +490,56 @@ def _sweep_bound(s, t, m, flops_per_pair, extra_in=(), outs=()):
                     B * S * t.shape[1] * flops_per_pair)
 
 
+def _nn_sweep_sass() -> dict:
+    """{(form, sources a thread): issue slots every scored pair costs} of
+    the nn_sweep kernels (utils/sass.py: the hot loop's instructions over
+    its running minima, FMNMX)."""
+    funcs, _ = sass.disassemble()
+    out = {}
+    for name, func in funcs.items():
+        m = re.search(r"nn_sweep_kernelILi(\d)ELi(\d)E", name)
+        if m:
+            slots = sass.issue_slots_per_pair(func)[0]
+            if slots is None:
+                fail(f"{name}: no running minimum (FMNMX) in its hot loop")
+            out[(int(m.group(1)), int(m.group(2)))] = slots
+    if not out:
+        fail("no nn_sweep kernel in the SASS")
+    return out
+
+
+def _swept_by_votes(S, smask, tmask, geo) -> tuple[int, int]:
+    """(pairs the sentinel-form sweep scores, valid pairs) over S sources
+    a row: the source blocks (threads x sources a thread) and target tiles
+    that hold a valid point, as the kernel's votes find them."""
+    B = tmask.shape[0]
+    block, tile = geo["threads"] * geo["rows_per_thread"], geo["tile"]
+
+    def occupied(m, n):
+        pad = torch.zeros((B, -(-m.shape[1] // n) * n), dtype=torch.bool, device=m.device)
+        pad[:, :m.shape[1]] = m
+        return pad.view(B, -1, n).any(-1).sum(-1) * n
+
+    if smask is None:
+        blocks, vs = torch.full((B,), -(-S // block) * block, device=tmask.device), S
+    else:
+        blocks, vs = occupied(smask, block), smask.sum(-1)
+    tiles, vt = occupied(tmask, tile), tmask.sum(-1)
+    valid = vt * vs
+    return int((blocks * tiles).sum()), int(valid.sum())
+
+
 def phase_k1(cases):
     results = {}
     max_err = 0.0
-    for tag, s, t, m, _ in cases:
+    slots = _nn_sweep_sass()
+    dev = cases[0][1].device
+    issue_rate = _cuda.sm_count(dev) * 128 * SM_CLOCK_HZ
+    for tag, s, sm, t, m, _ in cases:
         B, S = s.shape[:2]
         T = t.shape[1]
-        i_k, d_k = nn_search(s, t, m)
-        i_p, d_p = nn_search_plain(s, t, m)
+        i_k, d_k = _nn_search(s, t, m, "vpu_t", sm)
+        i_p, d_p = nn_search_plain(s, t, m, src_mask=sm)
         torch.cuda.synchronize()
         if not torch.equal(i_k, i_p):
             fail(f"K1 {tag}: indices differ in "
@@ -450,16 +548,30 @@ def phase_k1(cases):
             fail(f"K1 {tag}: d2 not bit-equal (max |diff| "
                  f"{float((d_k - d_p).abs().max())})")
         max_err = max(max_err, float((d_k - d_p).abs().max()))
+        geo = _cuda.sweep_geometry(B, S, T, s.device)
+        swept, valid = _swept_by_votes(S, sm, m, geo)
+        slot = slots[(0, geo["rows_per_thread"])]
         reps = 20 if S * T >= 2 ** 24 else 50
-        results[tag] = (cuda_ms(lambda: nn_search(s, t, m), reps),
-                        cuda_ms(lambda: nn_search_plain(s, t, m), 5),
-                        _sweep_bound(s, t, m, 8, outs=(i_k, d_k)),
-                        _cuda.sweep_geometry(B, S, T, s.device))
-        profile_later(2, f"nn_sweep {tag}", lambda s=s, t=t, m=m: nn_search(s, t, m), 1)
-    print("phase 2 K1 nn_sweep vs plain: indices equal, d2 bit-equal; "
-          + "; ".join(f"B=4 {tag}: wrapper {k:.4f} ms, plain {p:.4f} ms, "
-                      f"bound {b[0]:.4f} ms ({b[1]}); {geometry_text(g)}"
-                      for tag, (k, p, b, g) in results.items()))
+        call = lambda s=s, t=t, m=m, sm=sm: _nn_search(s, t, m, "vpu_t", sm)  # noqa: E731
+        results[tag] = (cuda_ms(call, reps),
+                        cuda_ms(lambda: nn_search_plain(s, t, m), 5)
+                        if tag in SMALL_TAGS else None,
+                        bound_ms(nbytes(s, t, m, i_k, d_k), 8.0 * valid), geo,
+                        (swept, valid, slot, swept * slot / issue_rate * 1e3))
+        profile_later(2, f"nn_sweep {tag}", call, 1)
+
+    def text(tag, k, p, b, g, work):
+        swept, valid, slot, issue = work
+        return (f"{tag}: ms a launch {k:.4f} (CUDA events, back to back)"
+                + (f", plain {p:.4f} ms" if p is not None else "")
+                + f", FLOP bound {b[0]:.4f} ms ({b[1]}; {100 * b[0] / k:.2f}% of it, the "
+                f"no-FMA ceiling ~50%), issue-rate bound {issue:.4f} ms ({slot:.2f} issue "
+                f"slots a pair x {swept} pairs scored, {valid} valid: "
+                f"{100 * (1 - valid / swept) if swept else 0.0:.2f}% padding); "
+                f"{geometry_text(g)}")
+    print("phase 2 K1 nn_sweep vs plain (with the source mask where the case has "
+          "one): indices equal, d2 bit-equal; B=4 "
+          + "; ".join(text(tag, *r) for tag, r in results.items()))
     # K1's main path is phase 4 (source stride 1): S = T = 8192
     k, p, (b, by), *_ = results["S8192"]
     return {"max_abs_err": max_err, "ms": k, "plain_ms": p, "bound_ms": b,
@@ -804,14 +916,15 @@ def phase_k6(rng, dev):
 
 
 def phase_k3_k4(cases):
-    """K3 in each form and K4 against their plain versions."""
+    """K3 in each form and K4 against their plain versions, with the
+    source mask where the case has one."""
     out = {}
     for impl in ("vpu", "vpu2", "mxu"):
         key = NN_IMPLS[impl]
         max_err, times = 0.0, {}
-        for tag, s, t, m, _ in cases:
-            i_k, d_k = nn_search(s, t, m, impl)
-            i_p, d_p = nn_search_plain(s, t, m, impl)
+        for tag, s, sm, t, m, _ in cases:
+            i_k, d_k = _nn_search(s, t, m, impl, sm)
+            i_p, d_p = nn_search_plain(s, t, m, impl, src_mask=sm)
             torch.cuda.synchronize()
             if not torch.equal(i_k, i_p):
                 fail(f"K3 {impl} {tag}: indices differ in "
@@ -820,6 +933,8 @@ def phase_k3_k4(cases):
                 fail(f"K3 {impl} {tag}: d2 not bit-equal (max |diff| "
                      f"{float((d_k - d_p).abs().max())})")
             max_err = max(max_err, float((d_k - d_p).abs().max()))
+            if tag not in SMALL_TAGS:
+                continue
             reps = 20 if s.shape[1] * t.shape[1] >= 2 ** 24 else 50
             flops = {"vpu": 9, "vpu2": 8, "mxu": 7}[impl]
             times[tag] = (cuda_ms(lambda: nn_search(s, t, m, impl), reps),
@@ -829,16 +944,18 @@ def phase_k3_k4(cases):
                           lambda s=s, t=t, m=m, impl=impl: nn_search(s, t, m, impl), 1)
         out[key] = times, max_err
     max_err, times = 0.0, {}
-    for tag, s, t, m, n in cases:
-        got = nn_search_vals(s, t, m, n)
-        ref = nn_search_vals_plain(s, t, m, n)
+    for tag, s, sm, t, m, n in cases:
+        got = _nn_search_vals(s, t, m, n, sm)
+        ref = nn_search_vals_plain(s, t, m, n, src_mask=sm)
         torch.cuda.synchronize()
         for name, a, b in zip(("d2", "q", "n"), got, ref):
             if not torch.equal(a, b):
                 fail(f"K4 {tag}: {name} differs from the plain version "
                      f"(max |diff| {float((a - b).abs().max())})")
-        if not torch.equal(got[0], nn_search(s, t, m)[1]):
+        if not torch.equal(got[0], _nn_search(s, t, m, "vpu_t", sm)[1]):
             fail(f"K4 {tag}: d2 differs from K1's")
+        if tag not in SMALL_TAGS:
+            continue
         reps = 20 if s.shape[1] * t.shape[1] >= 2 ** 24 else 50
         times[tag] = (cuda_ms(lambda: nn_search_vals(s, t, m, n), reps),
                       cuda_ms(lambda: nn_search_vals_plain(s, t, m, n), 5),
@@ -848,11 +965,12 @@ def phase_k3_k4(cases):
     out["nn_sweep_vals"] = times, max_err
     # every form and K4 launch with the one geometry of nn_sweep.cuh
     geo = {tag: _cuda.sweep_geometry(*s.shape[:2], t.shape[1], s.device)
-           for tag, s, t, *_ in cases}
-    print("phase 5 K3 nn_sweep (vpu, vpu2, mxu) and K4 nn_sweep_vals vs plain: "
-          "indices equal, d2 bit-equal, K4 q and n equal; launch geometry "
-          "(every form): " + "; ".join(f"{tag} {geometry_text(g)}"
-                                       for tag, g in geo.items()) + "; "
+           for tag, s, _, t, *_ in cases}
+    print("phase 5 K3 nn_sweep (vpu, vpu2, mxu) and K4 nn_sweep_vals vs plain "
+          "(with the source mask where the case has one; cases "
+          + ", ".join(tag for tag, *_ in cases) + "): indices equal, d2 bit-equal, "
+          "K4 q and n equal; launch geometry (every form): "
+          + "; ".join(f"{tag} {geometry_text(g)}" for tag, g in geo.items()) + "; "
           + "; ".join(
               f"{key} {tag}: wrapper {k:.4f} ms, plain {p:.4f} ms, bound "
               f"{b[0]:.4f} ms ({b[1]})"
@@ -1417,26 +1535,28 @@ def _within_spread(name: str, got: float, ref: list, floor: float = 0.0) -> str:
 def _k1_inputs():
     """Record, during one run, the inputs of the first and the last K1
     call the ICP makes at each shape (B, S, T): {shape: [first, last]},
-    each (src, tgt, tgt_mask).  The spy keeps references (no copies, no
+    each (src, tgt, tgt_mask, src_mask).  The spy keeps references (no copies, no
     launches): the ICP makes a fresh source each iteration and never
     writes its targets."""
     rec = {}
-    real = icp_mod.nn_search
+    real = icp_mod._nn_search
 
-    def spy(src, tgt, tgt_mask, impl="vpu_t"):
+    def spy(src, tgt, tgt_mask, impl, src_mask):
         if impl != "vpu_t":
             fail(f"the ICP searched with {impl}, not K1")
+        if src_mask is None:
+            fail("the ICP searched without its source mask")
         calls = rec.setdefault((src.shape[0], src.shape[1], tgt.shape[-2]), [None, None])
-        calls[1] = (src, tgt, tgt_mask)
+        calls[1] = (src, tgt, tgt_mask, src_mask)
         if calls[0] is None:
             calls[0] = calls[1]
-        return real(src, tgt, tgt_mask, impl)
+        return real(src, tgt, tgt_mask, impl, src_mask)
 
-    icp_mod.nn_search = spy
+    icp_mod._nn_search = spy
     try:
         yield rec
     finally:
-        icp_mod.nn_search = real
+        icp_mod._nn_search = real
 
 
 def _hold_k1(label: str, rec: dict, dev) -> str:
@@ -1448,9 +1568,9 @@ def _hold_k1(label: str, rec: dict, dev) -> str:
         fail(f"{label}: the ICP made no K1 call")
     notes = []
     for (b, n_src, n_tgt), calls in sorted(rec.items()):
-        for k, (src, tgt, tm) in zip(("first", "last"), calls):
-            i_k, d_k = nn_search(src, tgt, tm)
-            i_p, d_p = nn_search_plain(src, tgt, tm)
+        for k, (src, tgt, tm, sm) in zip(("first", "last"), calls):
+            i_k, d_k = _nn_search(src, tgt, tm, "vpu_t", sm)
+            i_p, d_p = nn_search_plain(src, tgt, tm, src_mask=sm)
             torch.cuda.synchronize()
             if not torch.equal(i_k, i_p) or not torch.equal(d_k, d_p):
                 fail(f"{label}: K1 at B={b}, S={n_src}, T={n_tgt} ({k} call) differs "

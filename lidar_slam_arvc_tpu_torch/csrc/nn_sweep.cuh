@@ -1,32 +1,67 @@
 // The exhaustive nearest-neighbour sweep shared by K1 and K3 (nn_sweep.cu)
 // and K4 (nn_sweep_vals.cu), for NVIDIA Hopper (sm_90a).
 //
-// Bound on this card: FP32 instruction issue.  Each (source, target) pair
-// costs 7-9 rounded f32 operations plus a compare and a select, and S*T
-// pairs are scored; nothing is read from device memory but the clouds.
-// Tensor cores do not apply (the contraction depth is 3).  The design:
+// What bounds it on this card: FP32 instruction issue.  A scored (source,
+// target) pair costs 8 rounded f32 operations for its d2 (3 differences,
+// 3 products, 2 sums; the matmul form 3 products, 2 sums, a doubling and
+// a difference), and nothing is read from device memory but the clouds.
+// No product may contract into an FMA: the plain PyTorch versions round
+// each operation alone, and d2 has to be bit-equal to theirs, or near
+// ties pick other indices.  A roofline that counts 8 operations a pair
+// against the card's 67 TFLOP/s, which counts an FMA as two, is therefore
+// out of reach by half: an exhaustive sweep issues at least 8 slots a
+// pair, so it reaches at most ~50% of that roofline.  Tensor cores do not
+// apply (contraction depth 3, and no TF32).  The time is pairs scored x
+// issue slots a pair, and the design cuts both factors:
 //
-//   * kRows sources per thread, each with kChains running bests (value,
-//     index) over interleaved targets (k mod kChains), all in registers:
-//     each target read from shared memory serves kRows pairs, and the
-//     kRows * kChains compare/select chains are independent, so the
-//     scheduler has work while one chain waits on its last select.  A
-//     source's chains merge by the lower d2 and, on a tie, the lower
-//     index: the first minimum over all its targets.  (kRows = 1 today:
-//     more sources per thread cost CTAs where the split is capped.)
-//   * The target axis is split across a thread block cluster of `split`
-//     CTAs (1..8, chosen at launch by geometry() so that the grid fills
-//     the SMs when the sources alone cannot).  CTA rank c sweeps the
-//     contiguous, ascending range [c*chunk, min((c+1)*chunk, T)) with a
-//     strict <, so within its range the first minimum wins.  The CTAs
-//     then merge their
-//     (best, index) through distributed shared memory in rank order,
-//     again with a strict <: the result is the minimum over the same set
-//     of bit-identical values with the lowest index on a tie, which is
-//     what the unsplit sweep returns.  An empty range contributes
-//     (+inf, 0) and never wins.
+//   * Score only occupied tiles.  Given a source mask, a CTA whose
+//     sources are all masked writes their rows (index 0, d2 0.0) and
+//     leaves; a cluster shares one source block, so its CTAs vote alike
+//     and leave together.  In the sentinel form (K1, K3 vpu2, K4) a
+//     staged target tile that holds no valid target is not swept: a
+//     block-wide vote over the staging's mask loads (__syncthreads_or, at
+//     the barrier the double buffer needs anyway) decides it, so the test
+//     is uniform and costs no pass and no host read.  Every masked target
+//     of that form sits at the one sentinel point, so the skipped tiles
+//     are stood for by one candidate, their first target at the source's
+//     d2 to the sentinel: exactly what sweeping them would give, also
+//     when every target is masked.  The penalty and matmul forms give
+//     each masked target its own score and sweep every tile.  Masked
+//     sources of a swept block are scored and then written as index 0,
+//     d2 0.0.
+//   * One running minimum a pair.  The inner loop keeps only the minimum
+//     of d2 (one FMNMX a pair in place of a compare and two selects); at
+//     the end of each sub-tile of 32 targets it notes the sub-tile if the
+//     minimum fell strictly in it.  After a tile, for each source whose
+//     minimum fell in it, the warp scores the noted sub-tile again from
+//     shared memory with the same rounded operations, one target a lane,
+//     and the first lane whose d2 equals the minimum gives the index: the
+//     first minimum over all targets, ties to the lowest index, at ~20
+//     warp instructions a fall (a source's minimum falls in few of its
+//     tiles).  fminf ignores NaN, so a position past the cloud (NaN in
+//     the tile) never wins.
+//   * Several sources a thread.  Each target read from shared memory (an
+//     LDS.128 broadcast) serves `rows` sources, each its own minimum in
+//     registers: 9 + 1/rows issue slots a pair.  geometry() picks rows
+//     (1 or 2) and the cluster split at launch from B, S and T: the most
+//     rows that still give kCtasPerSm CTAs an SM, so that the grid fills
+//     the card.  Where even one row a thread leaves the grid short, rows
+//     stays 1 and the split grows.  (4 rows, 9.4 slots a pair, left too
+//     few CTAs at the cells' shapes to spread the busy ones over the SMs.)
+//   * Busy blocks spread over the card.  Cluster c of a batch row sweeps
+//     source block (c * stride) mod blocks, stride an odd step near 0.618
+//     blocks and coprime to it, so that the blocks a prefix of valid
+//     sources leaves busy are not consecutive CTAs, which the hardware may
+//     deal to the same SMs.
+//   * The target axis split across a thread block cluster of `split`
+//     CTAs (1..8) that share one source block: target tile j goes to rank
+//     j mod split, so each rank gets its share of a valid prefix.  Each
+//     rank keeps, per source, the first minimum over its tiles; the ranks
+//     then merge (d2, index) through distributed shared memory, the lower
+//     d2 and on equal d2 the lower index.  A rank with no tile
+//     contributes (+inf, 0), which never wins.
 //   * Target tiles are double-buffered: the next tile's loads are issued
-//     into registers before the current tile is swept, and written to the
+//     into registers before the current tile is swept and written to the
 //     other shared-memory buffer after it, one barrier per tile.  Staging
 //     also forms the per-target row of each form (the sentinel
 //     substitution, the penalty, or t2 = |t|^2 + penalty) with the
@@ -34,9 +69,7 @@
 //     else.
 //
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn/
-// __fsub_rn): nvcc would otherwise contract a*b + c into an FMA, and the
-// plain PyTorch versions, which round each operation, would differ in the
-// last bit of d2 and so on near-tie indices.
+// __fsub_rn): nvcc would otherwise contract a*b + c into an FMA.
 
 #pragma once
 
@@ -44,24 +77,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <numeric>
+#include <type_traits>
+
 namespace nn_sweep {
 
 namespace cg = cooperative_groups;
 
-// kRows, kTile, kChains and kCtasPerSm are the fastest of a grid of
-// variants at the bench shapes on an H100 (utils/sweep_variants.py): with
-// kRows = 2 or 4 the split, capped at kMaxSplit, leaves the S = 2048 grid
-// at 256 or 128 CTAs.
+// kTile, kMaxRows, kCtasPerSm and kMinSplit: the fastest of a grid of
+// variants at the benchmark cells' shapes and at the small ICP shapes on
+// an H100 (utils/sweep_variants.py).
 constexpr int kThreads = 128;                 // threads per CTA
-constexpr int kRows = 1;                      // sources per thread
-constexpr int kBlockRows = kThreads * kRows;  // sources per CTA
-constexpr int kTile = 512;                    // targets per staged tile
+constexpr int kMaxRows = 2;                   // most sources per thread
+constexpr int kTile = 1024;                   // targets per staged tile
 constexpr int kFetch = kTile / kThreads;      // targets each thread stages
-constexpr int kChains = 2;                    // running bests per source
+constexpr int kSub = 32;                      // targets per sub-tile: a warp's lanes
+constexpr unsigned kWarp = 0xffffffffu;       // every lane of a warp
 constexpr int kMaxSplit = 8;                  // portable cluster size
-constexpr int kCtasPerSm = 2;                 // the split's target grid, per SM
+constexpr int kCtasPerSm = 2;                 // the grid geometry() aims at, per SM
+constexpr int kMinSplit = 2;                  // CTAs a source block's tiles go to, at least
 constexpr float kSentinel = -4e7f;
 constexpr float kBig = 1e12f;
+static_assert(kTile % kThreads == 0 && kTile % kSub == 0 && kSub == 32, "tile shape");
 
 // The d2 form, after the TPU kernel whose numbers it reproduces.
 enum Form : int {
@@ -86,29 +123,77 @@ struct Outputs {
   float* n;
 };
 
-// The launch geometry: CTAs along the sources, and the cluster split of
-// the target axis.  The split is the smallest power of two (at most
-// kMaxSplit) that gives at least kCtasPerSm * n_sm CTAs; each CTA of a
-// cluster sweeps chunk = ceil(T / split) targets.
+// The launch geometry: `rows` sources per thread, CTAs along the sources,
+// and the cluster split of the target axis.
 struct Geometry {
-  int blocks;  // source CTAs per batch row
-  int split;   // cluster size along the target axis
-  int chunk;   // targets per CTA
+  int rows;    // sources per thread (1 or 2)
+  int blocks;  // source CTAs per batch row, kThreads * rows sources each
+  int split;   // cluster size: CTAs of one source block, tiles dealt round robin
+  int stride;  // cluster c of a batch row sweeps source block (c * stride) mod blocks
 };
 
+// An odd step near 0.618 n that is coprime to n: consecutive clusters
+// then take source blocks spread over the whole row, so that the blocks
+// a prefix of valid sources leaves busy spread over the SMs however the
+// hardware deals consecutive CTAs to them.
+inline int spread_stride(int n) {
+  if (n <= 2) return 1;
+  int k = static_cast<int>(0.618 * n) | 1;
+  while (std::gcd(k, n) != 1) k += 2;
+  return k;
+}
+
+// The most rows (kMaxRows, halved down to 1) that give at least
+// kCtasPerSm * n_sm CTAs at the least split (kMinSplit, at most the target
+// tiles); where none does, 1 row and the split doubled (at most kMaxSplit
+// and the tiles) until the grid has that many.  A split of 2 or more
+// halves each CTA's share of a block's tiles, which the cells' shapes run
+// faster with; small clouds take 1 row before a larger split.
 inline Geometry geometry(int B, int S, int T, int n_sm) {
-  Geometry g;
-  g.blocks = (S + kBlockRows - 1) / kBlockRows;
-  g.split = 1;
-  while (g.split < kMaxSplit &&
-         static_cast<long long>(g.blocks) * B * g.split < static_cast<long long>(kCtasPerSm) * n_sm)
-    g.split *= 2;
-  g.chunk = (T + g.split - 1) / g.split;
+  const long long want = static_cast<long long>(kCtasPerSm) * n_sm;
+  const int tiles = (T + kTile - 1) / kTile;
+  Geometry g{1, 0, 1, 1};
+  auto ctas = [&] { return static_cast<long long>(g.blocks) * B * g.split; };
+  for (int rows = kMaxRows; rows >= 1; rows /= 2) {
+    g.rows = rows;
+    g.blocks = (S + kThreads * rows - 1) / (kThreads * rows);
+    g.split = 1;
+    while (g.split < kMinSplit && 2 * g.split <= tiles) g.split *= 2;
+    if (ctas() >= want) break;
+  }
+  while (g.split < kMaxSplit && 2 * g.split <= tiles && ctas() < want) g.split *= 2;
+  g.stride = spread_stride(g.blocks);
   return g;
+}
+
+// fn(std::integral_constant<int, R>) for the R == rows among kMaxRows,
+// kMaxRows / 2, ..., 1: only the row counts geometry() can pick are
+// instantiated.
+template <int R = kMaxRows, typename Fn>
+cudaError_t by_rows(int rows, Fn&& fn) {
+  if constexpr (R == 1) {
+    return fn(std::integral_constant<int, 1>{});
+  } else {
+    return rows == R ? fn(std::integral_constant<int, R>{}) : by_rows<R / 2>(rows, fn);
+  }
 }
 
 __device__ __forceinline__ float sq_norm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// A target as the sweep scores it in form F: x, y, z and the form's value
+// (the sentinel in place of a masked target's point, or its penalty, or
+// t2 = |t|^2 + penalty).
+template <int F>
+__device__ __forceinline__ float4 scored_target(float x, float y, float z, bool valid) {
+  if constexpr (F == kSentinelForm) {
+    return valid ? make_float4(x, y, z, 0.f)
+                 : make_float4(kSentinel, kSentinel, kSentinel, 0.f);
+  } else {
+    const float pen = valid ? 0.f : kBig;
+    return make_float4(x, y, z, F == kPenaltyForm ? pen : __fadd_rn(sq_norm(x, y, z), pen));
+  }
 }
 
 // d2 (or the matmul score) of source (sx, sy, sz) against target
@@ -131,14 +216,19 @@ __device__ __forceinline__ float pair_d2(float sx, float sy, float sz, float tx,
   }
 }
 
-// Writes the merged (best, bi) of source s of batch row b.  src/tgt are
-// already offset to row b.
+// Writes the merged (best, bi) of source s of batch row b; a masked source
+// (valid false) writes index 0 and d2 0.0.  src/tgt are already offset to
+// row b.
 template <int F, bool kVals>
 __device__ __forceinline__ void epilogue(const float* __restrict__ src,
                                          const float* __restrict__ tgt, const Outputs& out,
-                                         int b, int S, int T, int s, float best, int bi) {
+                                         int b, int S, int T, int s, float best, int bi,
+                                         bool valid) {
   const size_t o = static_cast<size_t>(b) * S + s;
-  if constexpr (F == kMatmulForm) {
+  if (!valid) {
+    best = 0.f;
+    bi = 0;
+  } else if constexpr (F == kMatmulForm) {
     const float s2 = sq_norm(src[3 * s], src[3 * s + 1], src[3 * s + 2]);
     best = fmaxf(__fadd_rn(best, s2), 0.f);
   }
@@ -156,13 +246,19 @@ __device__ __forceinline__ void epilogue(const float* __restrict__ src,
 }
 
 // The whole kernel body: grid (blocks * split, B), cluster (split, 1, 1),
-// kThreads threads.  CTA x of a batch row holds sources
-// (x / split) * kBlockRows + r * kThreads + threadIdx.x, r < kRows.
-template <int F, bool kVals>
+// kThreads threads, kRows sources a thread.  CTA x of a batch row holds
+// sources k * kThreads * kRows + r * kThreads + threadIdx.x, r < kRows,
+// of source block k = ((x / split) * stride) mod blocks.  smask (B, S) may
+// be null: every source valid.
+template <int F, bool kVals, int kRows>
 __device__ __forceinline__ void sweep(const float* __restrict__ src,
+                                      const uint8_t* __restrict__ smask,
                                       const float* __restrict__ tgt,
                                       const uint8_t* __restrict__ tmask, int S, int T,
-                                      int chunk, const Outputs& out) {
+                                      int stride, const Outputs& out) {
+  constexpr int kBlockRows = kThreads * kRows;
+  constexpr bool kSkip = F == kSentinelForm;  // the form whose masked targets are one point
+  const float kInf = __int_as_float(0x7f800000);
   __shared__ float4 tile[2][kTile];  // per target: x, y, z and the form's value
   __shared__ float m_best[kBlockRows];
   __shared__ int m_idx[kBlockRows];
@@ -171,28 +267,46 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
   const int split = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.y;
-  const int s0 = (blockIdx.x / split) * kBlockRows;
+  const int blocks = static_cast<int>(gridDim.x) / split;
+  const int s0 = static_cast<int>(static_cast<long long>(blockIdx.x / split) * stride % blocks) *
+                 kBlockRows;
   const int tid = threadIdx.x;
   src += static_cast<size_t>(b) * S * 3;
   tgt += static_cast<size_t>(b) * T * 3;
   tmask += static_cast<size_t>(b) * T;
-  const int t_begin = min(T, rank * chunk);
-  const int t_end = min(T, t_begin + chunk);
+  if (smask != nullptr) smask += static_cast<size_t>(b) * S;
+  auto source_valid = [&](int s) { return s < S && (smask == nullptr || smask[s] != 0); };
 
-  float sx[kRows], sy[kRows], sz[kRows], best[kRows][kChains];
-  int bi[kRows][kChains];
+  float sx[kRows], sy[kRows], sz[kRows];
+  bool live[kRows];
+  bool any_live = false;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int s = s0 + r * kThreads + tid;
-    const bool ok = s < S;
-    sx[r] = ok ? src[3 * s] : 0.f;
-    sy[r] = ok ? src[3 * s + 1] : 0.f;
-    sz[r] = ok ? src[3 * s + 2] : 0.f;
+    const bool in = s < S;
+    sx[r] = in ? src[3 * s] : 0.f;
+    sy[r] = in ? src[3 * s + 1] : 0.f;
+    sz[r] = in ? src[3 * s + 2] : 0.f;
+    live[r] = source_valid(s);
+    any_live |= live[r];
+  }
+  if (!__syncthreads_or(any_live)) {
+    // every source of the block masked: each CTA of the cluster writes its
+    // share of the rows, as the merge below would
+    for (int e = rank * kThreads + tid; e < kBlockRows; e += split * kThreads)
+      if (s0 + e < S) epilogue<F, kVals>(src, tgt, out, b, S, T, s0 + e, 0.f, 0, false);
+    return;
+  }
+
+  const int lane = tid % kSub;
+  float best[kRows], prev[kRows];
+  int bi[kRows];   // the first target at best
+  int win[kRows];  // offset in the tile of the sub-tile where best last fell, or -1
 #pragma unroll
-    for (int c = 0; c < kChains; ++c) {
-      best[r][c] = __int_as_float(0x7f800000);  // +inf
-      bi[r][c] = 0;
-    }
+  for (int r = 0; r < kRows; ++r) {
+    best[r] = prev[r] = kInf;
+    bi[r] = 0;
+    win[r] = -1;
   }
 
   // the next tile, in registers while the current one is swept
@@ -202,75 +316,95 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < kFetch; ++u) {
       const int t = base + u * kThreads + tid;
-      pin[u] = t < t_end;
+      pin[u] = t < T;
       px[u] = pin[u] ? tgt[3 * t] : 0.f;
       py[u] = pin[u] ? tgt[3 * t + 1] : 0.f;
       pz[u] = pin[u] ? tgt[3 * t + 2] : 0.f;
       pm[u] = pin[u] && tmask[t] != 0;
     }
   };
-  // A position past the range is NaN: its d2 is NaN, which no < ever
-  // picks, so every tile is swept whole (a constant trip count).
+  // A position past the cloud is NaN: fminf ignores it, so every tile is
+  // swept whole (a constant trip count).  Returns whether this thread
+  // staged a valid target.
   auto stage = [&](int buf) {
     const float nan = __int_as_float(0x7fc00000);
+    bool valid = false;
 #pragma unroll
     for (int u = 0; u < kFetch; ++u) {
-      float4 v;
-      if constexpr (F == kSentinelForm) {
-        v = pm[u] ? make_float4(px[u], py[u], pz[u], 0.f)
-                  : make_float4(kSentinel, kSentinel, kSentinel, 0.f);
-      } else {
-        const float pen = pm[u] ? 0.f : kBig;
-        v = make_float4(px[u], py[u], pz[u],
-                        F == kPenaltyForm ? pen : __fadd_rn(sq_norm(px[u], py[u], pz[u]), pen));
-      }
-      tile[buf][u * kThreads + tid] = pin[u] ? v : make_float4(nan, nan, nan, nan);
+      tile[buf][u * kThreads + tid] = pin[u] ? scored_target<F>(px[u], py[u], pz[u], pm[u])
+                                             : make_float4(nan, nan, nan, nan);
+      valid |= pm[u];
     }
+    return valid;
   };
 
+  const int tiles = (T + kTile - 1) / kTile;
+  int first_skip = -1;  // first target of the first skipped tile (all masked)
   int buf = 0;
-  if (t_begin < t_end) {
-    fetch(t_begin);
-    stage(0);
+  bool occupied = false;
+  if (rank < tiles) {
+    fetch(rank * kTile);
+    occupied = stage(0);
   }
-  __syncthreads();
-  for (int base = t_begin; base < t_end; base += kTile) {
-    const bool more = base + kTile < t_end;
-    if (more) fetch(base + kTile);
-    const float4* cur = tile[buf];
-#pragma unroll 4
-    for (int k = 0; k < kTile; k += kChains) {
+  occupied = __syncthreads_or(occupied);
+  for (int j = rank; j < tiles; j += split) {
+    const int base = j * kTile;
+    const bool more = j + split < tiles;
+    if (more) fetch(base + split * kTile);
+    if (!kSkip || occupied) {
+      const float4* cur = tile[buf];
+#pragma unroll 1
+      for (int u = 0; u < kTile; u += kSub) {
 #pragma unroll
-      for (int c = 0; c < kChains; ++c) {
-        const float4 p = cur[k + c];
+        for (int k = 0; k < kSub; ++k) {
+          const float4 p = cur[u + k];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            best[r] = fminf(best[r], pair_d2<F>(sx[r], sy[r], sz[r], p.x, p.y, p.z, p.w));
+        }
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          const float d2 = pair_d2<F>(sx[r], sy[r], sz[r], p.x, p.y, p.z, p.w);
-          if (d2 < best[r][c]) {
-            best[r][c] = d2;
-            bi[r][c] = base + k + c;
-          }
+          if (best[r] < prev[r]) win[r] = u;
+          prev[r] = best[r];
         }
       }
+      // The index of each row whose minimum fell in this tile, while the
+      // tile is in shared memory: the warp scores the row's noted
+      // sub-tile, one target a lane, and takes the first lane at the
+      // minimum.
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        for (unsigned todo = __ballot_sync(kWarp, win[r] >= 0); todo != 0;
+             todo &= todo - 1) {
+          const int l = __ffs(todo) - 1;
+          const int w = __shfl_sync(kWarp, win[r], l);
+          const float4 p = cur[w + lane];
+          const float d2 = pair_d2<F>(__shfl_sync(kWarp, sx[r], l),
+                                      __shfl_sync(kWarp, sy[r], l),
+                                      __shfl_sync(kWarp, sz[r], l), p.x, p.y, p.z, p.w);
+          const unsigned at = __ballot_sync(kWarp, d2 == __shfl_sync(kWarp, best[r], l));
+          if (lane == l) bi[r] = base + w + __ffs(at) - 1;
+        }
+        win[r] = -1;
+      }
+    } else if (first_skip < 0) {
+      first_skip = base;
     }
-    if (more) stage(buf ^ 1);
-    __syncthreads();
+    bool next = false;
+    if (more) next = stage(buf ^ 1);
+    occupied = __syncthreads_or(next);
     buf ^= 1;
   }
 
-  // a source's chains: the lower d2, on a tie the lower index (each
-  // chain holds the first minimum of its own targets)
-  float fb[kRows];
-  int fi[kRows];
+  // (best, bi) is each source's first minimum over this rank's swept
+  // tiles; in the sentinel form the skipped tiles add one candidate
+  if (kSkip && first_skip >= 0) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    fb[r] = best[r][0];
-    fi[r] = bi[r][0];
-#pragma unroll
-    for (int c = 1; c < kChains; ++c) {
-      if (best[r][c] < fb[r] || (best[r][c] == fb[r] && bi[r][c] < fi[r])) {
-        fb[r] = best[r][c];
-        fi[r] = bi[r][c];
+    for (int r = 0; r < kRows; ++r) {
+      const float d2 = pair_d2<F>(sx[r], sy[r], sz[r], kSentinel, kSentinel, kSentinel, 0.f);
+      if (d2 < best[r] || (d2 == best[r] && first_skip < bi[r])) {
+        best[r] = d2;
+        bi[r] = first_skip;
       }
     }
   }
@@ -278,16 +412,16 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int s = s0 + r * kThreads + tid;
-      if (s < S) epilogue<F, kVals>(src, tgt, out, b, S, T, s, fb[r], fi[r]);
+      if (s < S) epilogue<F, kVals>(src, tgt, out, b, S, T, s, best[r], bi[r], live[r]);
     }
     return;
   }
-  // merge the cluster's ranges in rank (= target) order; each CTA merges
-  // and writes its share of the sources
+  // merge the cluster's ranks: the lower d2, on equal d2 the lower index;
+  // each CTA merges and writes its share of the sources
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    m_best[r * kThreads + tid] = fb[r];
-    m_idx[r * kThreads + tid] = fi[r];
+    m_best[r * kThreads + tid] = best[r];
+    m_idx[r * kThreads + tid] = bi[r];
   }
   cluster.sync();
   for (int e = rank * kThreads + tid; e < kBlockRows; e += split * kThreads) {
@@ -297,19 +431,19 @@ __device__ __forceinline__ void sweep(const float* __restrict__ src,
     int wi[kMaxSplit];
 #pragma unroll
     for (int c = 0; c < kMaxSplit; ++c) {  // all loads in flight at once
-      w[c] = c < split ? cluster.map_shared_rank(m_best, c)[e] : 0.f;
+      w[c] = c < split ? cluster.map_shared_rank(m_best, c)[e] : kInf;
       wi[c] = c < split ? cluster.map_shared_rank(m_idx, c)[e] : 0;
     }
-    float v = __int_as_float(0x7f800000);
+    float v = kInf;
     int vi = 0;
 #pragma unroll
     for (int c = 0; c < kMaxSplit; ++c) {
-      if (c < split && w[c] < v) {
+      if (w[c] < v || (w[c] == v && wi[c] < vi)) {
         v = w[c];
         vi = wi[c];
       }
     }
-    epilogue<F, kVals>(src, tgt, out, b, S, T, s, v, vi);
+    epilogue<F, kVals>(src, tgt, out, b, S, T, s, v, vi, source_valid(s));
   }
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }

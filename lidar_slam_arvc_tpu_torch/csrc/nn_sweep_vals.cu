@@ -26,29 +26,34 @@ namespace {
 
 using namespace nn_sweep;
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-nn_sweep_vals_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-                     const uint8_t* __restrict__ tmask,
-                     const float* __restrict__ normals, int S, int T, int chunk,
+nn_sweep_vals_kernel(const float* __restrict__ src, const uint8_t* __restrict__ smask,
+                     const float* __restrict__ tgt, const uint8_t* __restrict__ tmask,
+                     const float* __restrict__ normals, int S, int T, int stride,
                      float* __restrict__ out_d2, float* __restrict__ out_q,
                      float* __restrict__ out_n) {
   const Outputs out{nullptr, out_d2, normals, out_q, out_n};
-  sweep<kSentinelForm, true>(src, tgt, tmask, S, T, chunk, out);
+  sweep<kSentinelForm, true, R>(src, smask, tgt, tmask, S, T, stride, out);
 }
 
 }  // namespace
 
-// src (B,S,3), tgt (B,T,3), normals (B,T,3) f32, tmask (B,T) uint8/bool,
-// all contiguous on one device; d2 (B,S), q (B,S,3) and n (B,S,3) f32 are
-// written.  n_sm: the card's SM count (sets the split, as
-// nn_sweep_geometry reports it).  Returns the launch's CUDA error.
-extern "C" int nn_sweep_vals_launch(const float* src, const float* tgt,
-                                    const uint8_t* tmask, const float* normals,
-                                    int B, int S, int T, int n_sm, float* d2, float* q,
-                                    float* n, cudaStream_t stream) {
+// src (B,S,3) f32, smask (B,S) uint8/bool or null (every source valid),
+// tgt (B,T,3), normals (B,T,3) f32, tmask (B,T) uint8/bool, all contiguous
+// on one device; d2 (B,S), q (B,S,3) and n (B,S,3) f32 are written (a
+// masked source: d2 0.0 and target 0's point and normal).  n_sm: the
+// card's SM count (sets the geometry, as nn_sweep_geometry reports it).
+// Returns the launch's CUDA error.
+extern "C" int nn_sweep_vals_launch(const float* src, const uint8_t* smask, const float* tgt,
+                                    const uint8_t* tmask, const float* normals, int B, int S,
+                                    int T, int n_sm, float* d2, float* q, float* n,
+                                    cudaStream_t stream) {
   if (B <= 0 || B > 65535 || S <= 0 || T <= 0 || n_sm <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = geometry(B, S, T, n_sm);
-  return static_cast<int>(launch_clustered(nn_sweep_vals_kernel, g, B, stream, src, tgt,
-                                           tmask, normals, S, T, g.chunk, d2, q, n));
+  return static_cast<int>(by_rows(g.rows, [&](auto rows) {
+    return launch_clustered(nn_sweep_vals_kernel<decltype(rows)::value>, g, B, stream, src,
+                            smask, tgt, tmask, normals, S, T, g.stride, d2, q, n);
+  }));
 }

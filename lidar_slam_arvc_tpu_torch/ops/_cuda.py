@@ -140,7 +140,7 @@ def _raise_if_failed(cmd: list[str], rc: int, out: str) -> None:
 def _load(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nn_sweep_launch.argtypes = [I, P, P, P, I, I, I, I, P, P, P]
+    lib.nn_sweep_launch.argtypes = [I, P, P, P, P, I, I, I, I, P, P, P]
     lib.nn_sweep_launch.restype = I
     lib.nn_sweep_geometry.argtypes = [I, I, I, I, P]
     lib.nn_sweep_geometry.restype = None
@@ -148,7 +148,7 @@ def _load(path: str) -> ctypes.CDLL:
     lib.ball_moments_launch.restype = I
     lib.ball_moments_geometry.argtypes = [I, I, I, P]
     lib.ball_moments_geometry.restype = I
-    lib.nn_sweep_vals_launch.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
+    lib.nn_sweep_vals_launch.argtypes = [P, P, P, P, P, I, I, I, I, P, P, P, P]
     lib.nn_sweep_vals_launch.restype = I
     lib.nn_pruned_launch.argtypes = [P, P, P, P, I, I, I, I, I, F, I, P, P, P]
     lib.nn_pruned_launch.restype = I
@@ -182,12 +182,14 @@ def _ints(fn, *args, n: int) -> tuple[int, ...]:
 def sweep_geometry(B: int, S: int, T: int, device) -> dict:
     """The launch K1/K3/K4 (``csrc/nn_sweep.cuh``) make for these sizes on
     ``device``'s card, as the kernel library computes it: grid, cluster
-    size (the split of the target axis), targets per CTA, threads per CTA
-    and sources per thread."""
+    size (the CTAs that share a source block; target tile j goes to rank
+    j mod cluster), targets per tile, threads per CTA, sources per thread
+    and targets per sub-tile (the unit the sweep notes its minimum's
+    place in)."""
     g = _ints(library().nn_sweep_geometry, B, S, T,
-              sm_count(torch.device(device)), n=6)
-    return {"grid": g[:2], "cluster": g[2], "chunk": g[3], "threads": g[4],
-            "rows_per_thread": g[5]}
+              sm_count(torch.device(device)), n=7)
+    return {"grid": g[:2], "cluster": g[2], "tile": g[3], "threads": g[4],
+            "rows_per_thread": g[5], "sub_tile": g[6]}
 
 
 def pruned_geometry(B: int, Sp: int, Tp: int, sb: int, tb: int, device) -> dict:

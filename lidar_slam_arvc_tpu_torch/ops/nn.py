@@ -30,15 +30,21 @@ PyTorch there and here, no kernel.
 ``nn_search`` and ``nn_search_vals`` launch ``csrc/nn_sweep.cu`` and
 ``csrc/nn_sweep_vals.cu`` for CUDA tensors, one kernel per call (see
 ``csrc/nn_sweep.cuh`` for what bounds them on an H100 and how the launch
-splits the target axis across a cluster), and run the plain versions for
-CPU tensors.  A CUDA tensor never reaches a plain version: a build or
-launch failure raises.
+splits the work), and run the plain versions for CPU tensors.  A CUDA
+tensor never reaches a plain version: a build or launch failure raises.
+
+The ICP reaches the same kernels through ``_nn_search`` and
+``_nn_search_vals``, which also take the source mask: a masked source
+reports index 0 (K4: target 0's point and normal) and d2 0.0, and a
+kernel skips a block of masked sources.  Without a source mask every
+function gives the outputs above.
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from lidar_slam_arvc_tpu_torch.ops import _cuda
@@ -52,8 +58,10 @@ FORMS = {"vpu_t": (0, "nn_sweep"), "vpu2": (0, "nn_sweep_vpu2"),
 
 
 def _batched(src, *rest):
+    """The arguments with a leading batch axis (None stays None), and
+    whether ``src`` had one."""
     if src.dim() == 2:
-        return (src[None], *(x[None] for x in rest), False)
+        return (src[None], *(None if x is None else x[None] for x in rest), False)
     return (src, *rest, True)
 
 
@@ -78,11 +86,19 @@ def _target_aux(tgt, tgt_mask, impl):
     return pen if impl == "vpu" else _sq_norm(tgt) + pen
 
 
+def _masked_sources(src_mask, idx, d2):
+    """(idx, d2) with index 0 and d2 0.0 in the rows ``src_mask`` masks."""
+    if src_mask is None:
+        return idx, d2
+    return torch.where(src_mask, idx, 0), torch.where(src_mask, d2, 0.0)
+
+
 def nn_search_plain(src: torch.Tensor, tgt: torch.Tensor,
                     tgt_mask: torch.Tensor, impl: str = "vpu_t",
-                    max_elems: int | None = None):
+                    max_elems: int | None = None, src_mask=None):
     """Plain PyTorch K1/K3: the same contract and arithmetic, sweeping
-    target chunks.
+    target chunks.  ``src_mask`` (like ``src`` without its last axis, or
+    None): a masked source reports index 0 and d2 0.0.
 
     Chunks of targets keep the (B, S, chunk) score tensor under
     ``max_elems`` (default: 2^24 on a card; on the CPU 2^16, at least 64
@@ -94,7 +110,7 @@ def nn_search_plain(src: torch.Tensor, tgt: torch.Tensor,
     rule)."""
     if impl not in FORMS:
         raise ValueError(f"unknown impl {impl!r} ({'|'.join(FORMS)})")
-    src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
+    src, tgt, tgt_mask, src_mask, batched = _batched(src, tgt, tgt_mask, src_mask)
     B, S, _ = src.shape
     T = tgt.shape[1]
     aux = _target_aux(tgt, tgt_mask, impl)
@@ -127,16 +143,18 @@ def nn_search_plain(src: torch.Tensor, tgt: torch.Tensor,
         best_i = torch.where(better, a + c0, best_i)
     if impl == "mxu":
         best = torch.clamp(best + _sq_norm(src), min=0.0)
-    return _unbatched((best_i.to(torch.int32), best), batched)
+    return _unbatched(_masked_sources(src_mask, best_i.to(torch.int32), best), batched)
 
 
-def _require_cloud(fn, src, tgt, tgt_mask, extra=()):
+def _require_cloud(fn, src, tgt, tgt_mask, extra=(), src_mask=None):
     B, S = src.shape[:2]
     T = tgt.shape[1]
     dev = src.device
     _cuda.require(src, "src", torch.float32, (B, S, 3), dev)
     _cuda.require(tgt, "tgt", torch.float32, (B, T, 3), dev)
     _cuda.require(tgt_mask, "tgt_mask", torch.bool, (B, T), dev)
+    if src_mask is not None:
+        _cuda.require(src_mask, "src_mask", torch.bool, (B, S), dev)
     for name, x in extra:
         _cuda.require(x, name, torch.float32, (B, T, 3), dev)
     if S == 0 or T == 0:
@@ -154,34 +172,57 @@ def nn_search(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
     tgt_mask (B, T) or (T,) bool.  Returns (idx int32, d2 f32), each
     shaped like ``src`` without its last axis.
     """
+    return _nn_search(src, tgt, tgt_mask, impl, None)
+
+
+def _nn_search(src, tgt, tgt_mask, impl, src_mask):
+    """``nn_search`` with the source mask (like ``src`` without its last
+    axis, or None): a masked source reports index 0 and d2 0.0."""
     if impl not in FORMS:
         raise ValueError(f"unknown impl {impl!r} ({'|'.join(FORMS)})")
     if src.device.type == "cpu":
-        return nn_search_plain(src, tgt, tgt_mask, impl)
+        return nn_search_plain(src, tgt, tgt_mask, impl, src_mask=src_mask)
     if src.device.type != "cuda":
         raise ValueError(f"nn_search: unsupported device {src.device}")
-    src, tgt, tgt_mask, batched = _batched(src, tgt, tgt_mask)
-    B, S, T, dev = _require_cloud("nn_search", src, tgt, tgt_mask)
+    src, tgt, tgt_mask, src_mask, batched = _batched(src, tgt, tgt_mask, src_mask)
+    B, S, T, dev = _require_cloud("nn_search", src, tgt, tgt_mask, src_mask=src_mask)
     form, key = FORMS[impl]
     idx, d2 = _cuda.idx_d2_outputs(B, S, dev)
     lib = _cuda.library()
     with _cuda.on_device(dev):
         err = lib.nn_sweep_launch(
-            form, src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(), B, S,
-            T, _cuda.sm_count(dev), idx.data_ptr(), d2.data_ptr(),
-            _cuda.stream_of(src))
+            form, src.data_ptr(), None if src_mask is None else src_mask.data_ptr(),
+            tgt.data_ptr(), tgt_mask.data_ptr(), B, S, T, _cuda.sm_count(dev),
+            idx.data_ptr(), d2.data_ptr(), _cuda.stream_of(src))
     _cuda.check(err, key)
     _cuda.launch_counts[key] += 1
     return _unbatched((idx, d2), batched)
 
 
+def swept_pairs(valid_src, valid_tgt, geometry: dict) -> int:
+    """Pairs one K1 launch scores (``csrc/nn_sweep.cuh``) for clouds whose
+    valid points are a prefix of their rows, from each pair's counts of
+    valid sources and targets and the launch's ``_cuda.sweep_geometry``:
+    the valid sources rounded up to the CTA's source block (threads x
+    sources per thread) times the valid targets rounded up to the tile.
+    Scattered masks leave more blocks and tiles occupied than these
+    counts."""
+    block = geometry["threads"] * geometry["rows_per_thread"]
+    tile = geometry["tile"]
+    vs = -(-np.asarray(valid_src, dtype=np.int64) // block) * block
+    vt = -(-np.asarray(valid_tgt, dtype=np.int64) // tile) * tile
+    return int(np.dot(vs, vt))
+
+
 def nn_search_vals_plain(src, tgt, tgt_mask, tgt_normals,
-                         max_elems: int = 1 << 24):
+                         max_elems: int = 1 << 24, src_mask=None):
     """Plain PyTorch K4: K1's plain sweep, then the winner's point and
-    normal gathered by index."""
-    src, tgt, tgt_mask, tgt_normals, batched = _batched(
-        src, tgt, tgt_mask, tgt_normals)
-    idx, d2 = nn_search_plain(src, tgt, tgt_mask, max_elems=max_elems)
+    normal gathered by index (target 0's for a source ``src_mask``
+    masks, with d2 0.0)."""
+    src, tgt, tgt_mask, tgt_normals, src_mask, batched = _batched(
+        src, tgt, tgt_mask, tgt_normals, src_mask)
+    idx, d2 = nn_search_plain(src, tgt, tgt_mask, max_elems=max_elems,
+                              src_mask=src_mask)
     g = idx.to(torch.int64)[..., None].expand(idx.shape + (3,))
     return _unbatched((d2, torch.gather(tgt, 1, g),
                        torch.gather(tgt_normals, 1, g)), batched)
@@ -196,14 +237,21 @@ def nn_search_vals(src: torch.Tensor, tgt: torch.Tensor,
     Shapes as ``nn_search``; tgt_normals like ``tgt``.  Returns d2 shaped
     like ``src`` without its last axis, q and n like ``src``.
     """
+    return _nn_search_vals(src, tgt, tgt_mask, tgt_normals, None)
+
+
+def _nn_search_vals(src, tgt, tgt_mask, tgt_normals, src_mask):
+    """``nn_search_vals`` with the source mask (like ``src`` without its
+    last axis, or None): a masked source reports d2 0.0 and target 0's
+    point and normal."""
     if src.device.type == "cpu":
-        return nn_search_vals_plain(src, tgt, tgt_mask, tgt_normals)
+        return nn_search_vals_plain(src, tgt, tgt_mask, tgt_normals, src_mask=src_mask)
     if src.device.type != "cuda":
         raise ValueError(f"nn_search_vals: unsupported device {src.device}")
-    src, tgt, tgt_mask, tgt_normals, batched = _batched(
-        src, tgt, tgt_mask, tgt_normals)
+    src, tgt, tgt_mask, tgt_normals, src_mask, batched = _batched(
+        src, tgt, tgt_mask, tgt_normals, src_mask)
     B, S, T, dev = _require_cloud("nn_search_vals", src, tgt, tgt_mask,
-                                  (("tgt_normals", tgt_normals),))
+                                  (("tgt_normals", tgt_normals),), src_mask)
     # one allocation for the three outputs (the wrapper's host time is
     # the call's time at S = 2048); each is a contiguous view of it
     buf = torch.empty(7 * B * S, dtype=torch.float32, device=dev)
@@ -213,7 +261,8 @@ def nn_search_vals(src: torch.Tensor, tgt: torch.Tensor,
     lib = _cuda.library()
     with _cuda.on_device(dev):
         err = lib.nn_sweep_vals_launch(
-            src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
+            src.data_ptr(), None if src_mask is None else src_mask.data_ptr(),
+            tgt.data_ptr(), tgt_mask.data_ptr(),
             tgt_normals.data_ptr(), B, S, T, _cuda.sm_count(dev),
             d2.data_ptr(), q.data_ptr(), n.data_ptr(), _cuda.stream_of(src))
     _cuda.check(err, "nn_sweep_vals")

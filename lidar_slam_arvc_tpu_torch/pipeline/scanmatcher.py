@@ -58,6 +58,7 @@ from lidar_slam_arvc_tpu_torch.io.pcd import read_pcd
 from lidar_slam_arvc_tpu_torch.io.sampling import sample_times
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.draws import seeded_generator
+from lidar_slam_arvc_tpu_torch.ops.nn import swept_pairs
 from lidar_slam_arvc_tpu_torch.parallel import mesh as _mesh
 from lidar_slam_arvc_tpu_torch.pipeline.preprocess import (
     METHODS, PLANE_SEED, SPLIT_METHODS, PreprocessedScans, preprocess_batch,
@@ -287,11 +288,20 @@ def _icp_register(points, mask, normals, idx_src, idx_tgt, seeds,
     """``register(g, sl)``: the ICP of the listed pairs ``sl``.
 
     ``valid``: host (P,) valid source and (P,) valid target points of each
-    pair, or None; given, every ICP step's K1 sweep adds the group's
-    source x target slots to ``k1_pairs_swept`` and its valid source x
-    valid target pairs to ``k1_pairs_valid`` (``utils.profiling.counts``)."""
+    pair (a prefix of its rows), or None; given, every ICP step's K1 sweep
+    adds the pairs it scores to ``k1_pairs_swept`` and the group's valid
+    source x valid target pairs to ``k1_pairs_valid``
+    (``utils.profiling.counts``).  On a card K1 scores the source blocks
+    and target tiles that hold a valid point (``ops.nn.swept_pairs``, at
+    the geometry the kernel library reports); on the CPU its plain version
+    scores every source x target slot."""
     C = points.shape[1]
     S = -(-C // params.source_stride)
+
+    def swept(vs, vt):
+        if points.device.type != "cuda":
+            return len(vs) * S * C
+        return swept_pairs(vs, vt, _cuda.sweep_geometry(len(vs), S, C, points.device))
 
     def register(_, sl):
         si, ti = idx_src[sl], idx_tgt[sl]
@@ -301,7 +311,7 @@ def _icp_register(points, mask, normals, idx_src, idx_tgt, seeds,
         if valid is not None:
             trips = profiling.counts["icp_steps"] - steps
             vs, vt = valid[0][sl], valid[1][sl]
-            profiling.count("k1_pairs_swept", trips * len(vs) * S * C)
+            profiling.count("k1_pairs_swept", trips * swept(vs, vt))
             profiling.count("k1_pairs_valid", trips * int(np.dot(vs, vt)))
         return res
     return register

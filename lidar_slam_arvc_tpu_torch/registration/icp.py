@@ -54,7 +54,7 @@ import torch
 from lidar_slam_arvc_tpu_torch.cloud.cloud import Cloud
 from lidar_slam_arvc_tpu_torch.geom.se3 import t2v, transform_from_euler, transform_points
 from lidar_slam_arvc_tpu_torch.ops.icp_step import _metrics, icp_step
-from lidar_slam_arvc_tpu_torch.ops.nn import nn_search, nn_search_vals, nn_search_xla
+from lidar_slam_arvc_tpu_torch.ops.nn import _nn_search, _nn_search_vals, nn_search_xla
 from lidar_slam_arvc_tpu_torch.ops.nn_pruned import (
     morton_sort, nn_search_pruned_presorted, pad_rows,
 )
@@ -111,31 +111,36 @@ def _check_nn_impl(params: ICPParams) -> None:
                          "break the presorted block layout)")
 
 
-def _search(params: ICPParams, src_mask, tgt_points, tgt_masks, tgt_normals):
-    """search(p) -> (d2, idx, q, n) for transformed sources p, by the search
-    that ``params.nn_impl`` selects: the nearest valid target's index, or
-    (K4, ``vpu_tq``) its point and normal, the other pair None.
-    ``src_mask`` is read by the pruned search only."""
+def _search(params: ICPParams, tgt_points, tgt_masks, tgt_normals):
+    """search(p, mask) -> (d2, idx, q, n) for transformed sources p and
+    their mask, by the search that ``params.nn_impl`` selects: the nearest
+    valid target's index, or (K4, ``vpu_tq``) its point and normal, the
+    other pair None.  K1, K3 and K4 take the mask: a masked source reports
+    index 0 (K4: target 0's point and normal) and d2 0.0, which the step's
+    gate drops, and a block of masked sources is not swept.  The pruned
+    search reads it too; the XLA sweep does not."""
     impl = params.nn_impl
 
     def by_index(idx, d2):
         return d2, idx, None, None
 
     if impl == "vpu_tq":
-        def by_value(p):
-            d2, q, n = nn_search_vals(p.contiguous(), tgt_points, tgt_masks, tgt_normals)
+        def by_value(p, mask):
+            d2, q, n = _nn_search_vals(p.contiguous(), tgt_points, tgt_masks, tgt_normals,
+                                       mask)
             return d2, None, q, n
         return by_value
     if impl == "xla":
-        return lambda p: by_index(*nn_search_xla(p, tgt_points, tgt_masks))
+        return lambda p, mask: by_index(*nn_search_xla(p, tgt_points, tgt_masks))
     if impl == "pruned":
         sb = min(512, params.src_block)
         tb = min(512, params.tgt_block)
         gate = params.max_correspondence_distance
-        return lambda p: by_index(*nn_search_pruned_presorted(
-            p.contiguous(), src_mask, tgt_points, tgt_masks, gate, sb, tb))
+        return lambda p, mask: by_index(*nn_search_pruned_presorted(
+            p.contiguous(), mask, tgt_points, tgt_masks, gate, sb, tb))
     form = "vpu_t" if impl in ("auto", "pallas") else impl
-    return lambda p: by_index(*nn_search(p.contiguous(), tgt_points, tgt_masks, form))
+    return lambda p, mask: by_index(*_nn_search(p.contiguous(), tgt_points, tgt_masks, form,
+                                                mask))
 
 
 def icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
@@ -176,14 +181,13 @@ def _icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
             pad_rows(tgt_normals, t_order.shape[1]), t_order[..., None], dim=1)
     src_pts = src_pts.contiguous()
     src_mask = src_mask.contiguous()
-    src_mask_f = src_mask.to(src_pts.dtype)
     thr2 = params.max_correspondence_distance ** 2
     tgt_points = tgt_points.contiguous()
     tgt_normals = tgt_normals.contiguous()
-    search = _search(params, src_mask, tgt_points, tgt_masks.contiguous(), tgt_normals)
+    search = _search(params, tgt_points, tgt_masks.contiguous(), tgt_normals)
     converge = params.convergence_tol > 0
 
-    def run_phase(T, pts, mask_f, max_iters, tol):
+    def run_phase(T, pts, mask, max_iters, tol):
         """Each trip is the search and ``icp_step``, which updates the state
         (T, delta, fit, rmse, it, active) in place and returns the sources
         under the new T.  With ``convergence_tol`` 0 every pair steps
@@ -203,7 +207,8 @@ def _icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
         active = (it < max_iters) & (delta > tol)
         state = (T, delta, fit, rmse, it, active)
         pts = pts.contiguous()
-        mask_f = mask_f.contiguous()
+        mask = mask.contiguous()
+        mask_f = mask.to(pts.dtype)
         p = transform_points(T, pts)
         if converge:
             with span("sync.icp_converged"):
@@ -214,7 +219,7 @@ def _icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
         while go:
             with span("icp.step"):
                 with span("icp.correspond"):
-                    d2, idx, q, n = search(p)
+                    d2, idx, q, n = search(p, mask)
                 with span("icp.update"):
                     p = icp_step(pts, p, mask_f, d2, idx, q, n, tgt_points, tgt_normals,
                                  state, thr2=thr2, robust=params.robust,
@@ -234,18 +239,18 @@ def _icp_batch(src_points, src_masks, tgt_points, tgt_masks, tgt_normals,
     if params.coarse_factor > 1 and params.coarse_iterations > 0:
         f = params.coarse_factor
         T, it_c, _, _, _ = run_phase(
-            T, src_pts[:, ::f], src_mask_f[:, ::f],
+            T, src_pts[:, ::f], src_mask[:, ::f],
             params.coarse_iterations, 10.0 * params.convergence_tol)
         iters = iters + it_c
     T, it_f, final_delta, fitness, rmse = run_phase(
-        T, src_pts, src_mask_f, params.max_iterations, params.convergence_tol)
+        T, src_pts, src_mask, params.max_iterations, params.convergence_tol)
     iters = iters + it_f
     # zero iterations read as converged, not as the +inf initialiser
     final_delta = torch.where(it_f > 0, final_delta, 0.0)
 
     if params.exact_metrics or params.max_iterations == 0:
-        d2 = search(transform_points(T, src_pts))[0]
-        _, fitness, rmse = _metrics(d2, src_mask_f, thr2)
+        d2 = search(transform_points(T, src_pts), src_mask)[0]
+        _, fitness, rmse = _metrics(d2, src_mask.to(src_pts.dtype), thr2)
     return ICPResult(transform=T, fitness=fitness, inlier_rmse=rmse,
                      iterations=iters, final_delta=final_delta)
 

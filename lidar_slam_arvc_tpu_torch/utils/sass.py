@@ -7,12 +7,14 @@ Builds the kernel library (``ops._cuda``), disassembles it with
 opcode histogram of its largest loop (the body between a backward branch
 and its target), and its hot loop: the loop with the largest share of
 FP32 arithmetic (FADD/FMUL/FFMA), the unrolled inner loop of a sweep.
-In a nearest-neighbour sweep every scored pair updates its running best
-with one select (FSEL after its compare); K2 (ball moments) has no select,
-and every scored pair there makes one ball compare (FSETP against r^2).
-So the hot loop's instructions over its FSELs, or over its FSETPs where it
-has no FSEL, are the issue slots a pair costs, what a kernel's issue-rate
-bound rests on (4 warp-instructions a cycle an SM).  Instructions that a
+In the exhaustive sweeps (K1, K3, K4) every scored pair updates its
+running minimum with one FMNMX; in K5 every scored pair updates its
+running best with one select (FSEL after its compare); K2 (ball moments)
+has neither, and every scored pair there makes one ball compare (FSETP
+against r^2).  So the hot loop's instructions over its FMNMXs, or over
+its FSELs where it has none, or over its FSETPs where it has neither, are
+the issue slots a pair costs, what a kernel's issue-rate bound rests on
+(4 warp-instructions a cycle an SM).  Instructions that a
 predicated forward branch inside the loop jumps over (K2's ten
 accumulations, run only for a pair inside the ball) are counted apart:
 they cost their slots only for the pairs that take the branch.  Each kernel's line
@@ -136,8 +138,9 @@ def branch_bodies(func: dict) -> list[str]:
 
 def pairs_in(hot: list[str]) -> tuple[int, str]:
     """(scored pairs one pass of the hot loop covers, the opcode counted):
-    its FSELs, or its FSETPs (ball compares) where it has no FSEL."""
-    for op in ("FSEL", "FSETP"):
+    its FMNMXs (running minima), or its FSELs (running bests) where it has
+    none, or its FSETPs (ball compares) where it has neither."""
+    for op in ("FMNMX", "FSEL", "FSETP"):
         n = sum(_opcode(t).split(".")[0] == op for t in hot)
         if n:
             return n, op

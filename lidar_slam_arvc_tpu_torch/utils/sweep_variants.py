@@ -1,20 +1,27 @@
 """Time variants of the exhaustive sweep's tuning constants on a card.
 
     python -m lidar_slam_arvc_tpu_torch.utils.sweep_variants \
-        [--rows 1,2,4] [--tile 128,256,512] [--chains 1,2] \
-        [--ctas-per-sm 1,2,4] [--threads 128]
+        [--max-rows 1,2,4] [--tile 512,1024] [--ctas-per-sm 2,4,8] \
+        [--min-split 1,2] [--threads 128] [--shapes S2048,S8192,stage2,kitti,nclt]
 
 Copies ``csrc/nn_sweep.cu`` and ``csrc/nn_sweep.cuh`` once per point of the
-grid with the constants ``kRows`` (sources per thread), ``kTile`` (targets
-per staged tile), ``kChains`` (running bests per source), ``kCtasPerSm``
-(the split's target grid) and ``kThreads`` replaced, builds each with
-``nvcc`` (several at once), and times its launch entry with CUDA events
-(50 back-to-back launches after warm-up, so the host's share is hidden) at
-the bench shapes: B = 4, T = 8192, S = 2048 and 8192, in the sentinel
-form (K1) and the matmul form (K3 ``mxu``).  Each result is checked
-against the plain version (indices equal, d2 bit-equal).  Prints the
-card's name and power limit, then one line per variant.  Needs nvcc and a
-CUDA card; the builds go to a temporary directory under ``_build/``.
+grid with the constants ``kMaxRows`` (most sources per thread), ``kTile``
+(targets per staged tile), ``kCtasPerSm`` (the grid the geometry aims at),
+``kMinSplit`` (the least cluster split) and ``kThreads`` replaced, builds each
+with ``nvcc`` (several at once), and times K1's launch entry (sentinel
+form) with CUDA events (back-to-back launches after warm-up, so the host's
+share is hidden) at these shapes: ``S2048`` B = 4, S = 2048, T = 8192,
+``S8192`` B = 4, S = T = 8192 and ``stage2`` B = 12, S = T = 8192, with
+~30% of the targets masked at random and no source mask (the small ICP
+shapes and stage 2's loop pairs); ``kitti`` B = 4, S = T = 32768 with
+prefixes of 19,500-22,500 valid sources and targets (the
+``kitti00.stage1`` cell's scans); ``nclt`` B = 4, S = T = 65536 with
+prefixes of 50,700-55,700 valid points (``nclt-full.stage1``).  The
+source mask goes in as the ICP passes it.  Each result is checked against
+the plain version (indices equal, d2 bit-equal).  Prints the card's name
+and power limit, then one line per variant: its registers and, per shape,
+its ms and the geometry it picked.  Needs nvcc and a CUDA card; the builds
+go to a temporary directory under ``_build/``.
 """
 
 from __future__ import annotations
@@ -36,10 +43,14 @@ import torch
 from lidar_slam_arvc_tpu_torch.ops import _cuda
 from lidar_slam_arvc_tpu_torch.ops.nn import nn_search_plain
 
-KNOBS = {"rows": "kRows", "tile": "kTile", "chains": "kChains",
-         "ctas_per_sm": "kCtasPerSm", "threads": "kThreads"}
-SHAPES = (("S2048", 2048, 8192), ("S8192", 8192, 8192))
-FORMS = (("K1", 0, "vpu_t"), ("mxu", 2, "mxu"))
+KNOBS = {"max_rows": "kMaxRows", "tile": "kTile", "ctas_per_sm": "kCtasPerSm",
+         "min_split": "kMinSplit", "threads": "kThreads"}
+# name -> (B, S, T, valid points per row: a prefix in [lo, hi], or None
+# for ~30% of the targets masked at random and every source valid)
+SHAPES = {"S2048": (4, 2048, 8192, None), "S8192": (4, 8192, 8192, None),
+          "stage2": (12, 8192, 8192, None),
+          "kitti": (4, 32768, 32768, (19500, 22500)),
+          "nclt": (4, 65536, 65536, (50700, 55700))}
 PARALLEL_BUILDS = 8
 
 
@@ -55,15 +66,23 @@ def variant_source(header: str, values: dict, knobs: dict = KNOBS,
     return header
 
 
-def _inputs(dev):
+def _inputs(dev, names):
+    """{name: (src, src_mask or None, tgt, tgt_mask)} on the card."""
     rng = np.random.default_rng(0)
     out = {}
-    for tag, S, T in SHAPES:
-        src = rng.uniform(-25, 25, (4, S, 3)).astype(np.float32)
-        tgt = rng.uniform(-25, 25, (4, T, 3)).astype(np.float32)
+    for name in names:
+        B, S, T, valid = SHAPES[name]
+        src = rng.uniform(-25, 25, (B, S, 3)).astype(np.float32)
+        tgt = rng.uniform(-25, 25, (B, T, 3)).astype(np.float32)
         src[:, :S // 4] = tgt[:, rng.integers(0, T, S // 4)]
-        mask = rng.uniform(size=(4, T)) > 0.3
-        out[tag] = [torch.from_numpy(a).to(dev) for a in (src, tgt, mask)]
+        if valid is None:
+            smask, tmask = None, rng.uniform(size=(B, T)) > 0.3
+        else:
+            n = rng.integers(valid[0], valid[1] + 1, size=(2, B))
+            smask = np.arange(S) < n[0][:, None]
+            tmask = np.arange(T) < n[1][:, None]
+        out[name] = [None if a is None else torch.from_numpy(a).to(dev)
+                     for a in (src, smask, tgt, tmask)]
     return out
 
 
@@ -83,12 +102,14 @@ def _ms(fn, reps: int = 50) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    defaults = {"rows": "1,2,4", "tile": "128,256,512", "chains": "1,2",
-                "ctas_per_sm": "1,2,4", "threads": "128"}
+    defaults = {"max_rows": "1,2,4", "tile": "512,1024", "ctas_per_sm": "2,4,8",
+                "min_split": "1,2", "threads": "128"}
     for knob, default in defaults.items():
         ap.add_argument("--" + knob.replace("_", "-"), default=default)
+    ap.add_argument("--shapes", default=",".join(SHAPES))
     args = ap.parse_args(argv)
     grid = {k: [int(v) for v in getattr(args, k).split(",")] for k in KNOBS}
+    names = args.shapes.split(",")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -98,9 +119,9 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     header = open(os.path.join(_cuda.CSRC, "nn_sweep.cuh")).read()
     nvcc = _cuda._nvcc()
-    inputs = _inputs(dev)
-    ref = {(tag, name): nn_search_plain(*inputs[tag], impl=impl)
-           for tag, *_ in SHAPES for name, _, impl in FORMS}
+    inputs = _inputs(dev, names)
+    ref = {name: nn_search_plain(s, t, tm, src_mask=sm)
+           for name, (s, sm, t, tm) in inputs.items()}
     n_sm = _cuda.sm_count(dev)
     os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as root:
@@ -124,34 +145,41 @@ def main(argv=None) -> int:
 
         with concurrent.futures.ThreadPoolExecutor(PARALLEL_BUILDS) as pool:
             procs = list(pool.map(build, [so for _, so in variants]))
+        P, I = ctypes.c_void_p, ctypes.c_int
         for (values, so), proc in zip(variants, procs):
             log = proc.stdout
-            name = " ".join(f"{k}={v}" for k, v in values.items())
+            label = " ".join(f"{k}={v}" for k, v in values.items())
             if proc.returncode:
-                print(f"{name}: build failed\n{log}", flush=True)
+                print(f"{label}: build failed\n{log}", flush=True)
                 continue
             lib = ctypes.CDLL(so)
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.nn_sweep_launch.argtypes = [I, P, P, P, I, I, I, I, P, P, P]
+            lib.nn_sweep_launch.argtypes = [I, P, P, P, P, I, I, I, I, P, P, P]
+            lib.nn_sweep_geometry.argtypes = [I, I, I, I, P]
             times = []
-            for tag, S, T in SHAPES:
-                s, t, m = inputs[tag]
-                idx = torch.empty((4, S), dtype=torch.int32, device=dev)
-                d2 = torch.empty((4, S), dtype=torch.float32, device=dev)
+            for name, (s, sm, t, tm) in inputs.items():
+                B, S = s.shape[:2]
+                T = t.shape[1]
+                idx = torch.empty((B, S), dtype=torch.int32, device=dev)
+                d2 = torch.empty((B, S), dtype=torch.float32, device=dev)
                 stream = _cuda.stream_of(s)
-                for fname, form, _ in FORMS:
-                    def call():
-                        _cuda.check(lib.nn_sweep_launch(
-                            form, s.data_ptr(), t.data_ptr(), m.data_ptr(), 4, S, T,
-                            n_sm, idx.data_ptr(), d2.data_ptr(), stream), "variant")
-                    call()
-                    torch.cuda.synchronize()
-                    ri, rd = ref[(tag, fname)]
-                    ok = torch.equal(idx, ri) and torch.equal(d2, rd)
-                    times.append(f"{fname} {tag} {_ms(call):.4f} ms"
-                                 + ("" if ok else " DIFFERS FROM PLAIN"))
+                geo = (ctypes.c_int * 7)()
+                lib.nn_sweep_geometry(B, S, T, n_sm, geo)
+
+                def call():
+                    _cuda.check(lib.nn_sweep_launch(
+                        0, s.data_ptr(), None if sm is None else sm.data_ptr(), t.data_ptr(),
+                        tm.data_ptr(), B, S, T, n_sm, idx.data_ptr(), d2.data_ptr(), stream),
+                        "variant")
+                call()
+                torch.cuda.synchronize()
+                ri, rd = ref[name]
+                ok = torch.equal(idx, ri) and torch.equal(d2, rd)
+                reps = 20 if S * T >= 2 ** 28 else 50
+                times.append(f"{name} {_ms(call, reps):.4f} ms (grid {geo[0]}x{geo[1]}, "
+                             f"cluster {geo[2]}, rows {geo[5]})"
+                             + ("" if ok else " DIFFERS FROM PLAIN"))
             regs = sorted(set(re.findall(r"Used (\d+) registers", log)))
-            print(f"{name} (registers {'/'.join(regs)}): " + "; ".join(times), flush=True)
+            print(f"{label} (registers {'/'.join(regs)}): " + "; ".join(times), flush=True)
     return 0
 
 

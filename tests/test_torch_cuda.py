@@ -45,27 +45,32 @@ def t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-# (B, S, T) of the sweep tests.  The sweep splits T across a cluster of up
-# to 8 CTAs of 128 sources each: 131 and 1001 are no multiple of the split,
-# 5 is smaller than it (empty ranges), and 77, 257, 300 and 1000 are no
-# multiple of the 128 sources of a CTA.
+# (B, S, T) of the sweep tests.  The sweep deals T's 1024-target tiles
+# round robin to a cluster of up to 8 CTAs that share 128 or 256 sources
+# (1 or 2 a thread): 131 and 1001 are no multiple of a tile, 5 is smaller
+# than one, 77, 257, 300 and 1000 are no multiple of a CTA's sources;
+# (2, 1000, 8192) takes a cluster of 8 and the last shape 2 sources a
+# thread over a cluster of 2.
 SWEEP_SHAPES = [(4, 1000, 3000), (1, 77, 131), (2, 2048, 64), (1, 300, 1001),
-                (1, 77, 5), (3, 257, 700)]
+                (1, 77, 5), (3, 257, 700), (2, 1000, 8192), (4, 16384, 16384)]
 
 
 def _sweep_clouds(rng, dev, B, S, T):
     """Sources, targets and a mask on the card: the second half of the
     targets repeats the first (ties), ~30% masked targets, a third of the
-    sources on targets; at every boundary of the cluster's target ranges
-    the first target of a range duplicates the last of the one before,
-    both valid, with a source on it, so the tie crosses the split."""
+    sources on targets; at every tile edge (where the next rank of a
+    cluster takes over) and every sub-tile edge (the unit in which the
+    sweep notes where its minimum fell) the first target after the edge
+    duplicates the last one before it, both valid, with a source on it, so
+    the tie crosses the edge."""
     src = (rng.normal(size=(B, S, 3)) * 10).astype(np.float32)
     tgt = (rng.normal(size=(B, T, 3)) * 10).astype(np.float32)
     tgt[:, T // 2:] = tgt[:, : T - T // 2]
     src[:, : S // 3] = tgt[:, rng.integers(0, T, S // 3)]
     mask = rng.uniform(size=(B, T)) > 0.3
-    chunk = _cuda.sweep_geometry(B, S, T, dev)["chunk"]
-    for n, edge in enumerate(range(chunk, T, chunk)):
+    geo = _cuda.sweep_geometry(B, S, T, dev)
+    edges = sorted(set(range(geo["sub_tile"], T, geo["sub_tile"])))
+    for n, edge in enumerate(edges):
         tgt[:, edge] = tgt[:, edge - 1]
         mask[:, edge - 1: edge + 1] = True
         src[:, (S - 1 - n) % S] = tgt[:, edge]
@@ -131,6 +136,57 @@ def test_k4_kernel_matches_plain(rng, dev, B, S, T):
     assert _cuda.launch_counts["nn_sweep_vals"] == n0 + 1
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert torch.equal(got[0], nn_search(s, tg, m)[1])
+
+
+# source and target mask patterns of the masked sweep: "prefix" (the
+# voxel grid's layout: valid rows first), "scattered" (icp2planes' ground
+# and non-ground rows), "no_sources" (one row with every source masked)
+# and "no_targets" (one row with every target masked)
+MASK_PATTERNS = ["prefix", "scattered", "no_sources", "no_targets"]
+
+
+def _masked_clouds(rng, dev, B, S, T, pattern):
+    src, tgt, mask = _sweep_clouds(rng, dev, B, S, T)
+    smask = np.ones((B, S), bool)
+    if pattern == "prefix":
+        n_s = rng.integers(S // 3, S + 1, B)
+        n_t = rng.integers(max(T // 3, 1), T + 1, B)
+        smask = np.arange(S) < n_s[:, None]
+        mask = np.arange(T) < n_t[:, None]
+    elif pattern == "scattered":
+        smask = rng.uniform(size=(B, S)) > 0.5
+    elif pattern == "no_sources":
+        smask[0] = False
+    else:
+        mask[-1] = False
+    return src, smask, tgt, mask
+
+
+@pytest.mark.parametrize("pattern", MASK_PATTERNS)
+@pytest.mark.parametrize("impl", ["vpu_t", "vpu", "vpu2", "mxu", "vals"])
+@pytest.mark.parametrize("B,S,T", [(4, 1000, 3000), (3, 257, 700), (4, 16384, 16384)])
+def test_masked_sweep_matches_plain(rng, dev, impl, pattern, B, S, T):
+    """K1, K3 and K4 with the source mask the ICP passes: bit-equal to the
+    plain versions with it (index 0 and d2 0.0 for a masked source, the
+    skipped blocks and tiles included), and the valid rows equal to the
+    sweep without a mask."""
+    from lidar_slam_arvc_tpu_torch.ops.nn import _nn_search, _nn_search_vals
+    src, smask, tgt, mask = (t(a, dev) for a in _masked_clouds(rng, dev, B, S, T, pattern))
+    if impl == "vals":
+        nrm = t(rng.normal(size=(B, T, 3)).astype(np.float32), dev)
+        got = _nn_search_vals(src, tgt, mask, nrm, smask)
+        ref = nn_search_vals_plain(src, tgt, mask, nrm, src_mask=smask)
+        bare = nn_search_vals(src, tgt, mask, nrm)
+    else:
+        got = _nn_search(src, tgt, mask, impl, smask)
+        ref = nn_search_plain(src, tgt, mask, impl, src_mask=smask)
+        bare = nn_search(src, tgt, mask, impl)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, bare):
+        assert torch.equal(a, b)
+        assert torch.equal(a[smask], c[smask])
+    d2 = got[0] if impl == "vals" else got[1]
+    assert (d2[~smask].view(torch.int32) == 0).all()
 
 
 @pytest.mark.parametrize("sb,tb,case", [

@@ -5,7 +5,10 @@ On the CPU (tier 1): ``icp_batch``'s loop, driven through ``icp_step``'s
 plain version, gives the result of the eager loop (``_eager_icp``: each
 trip transforms, searches, gathers and steps on whole tensors) bit for
 bit, under every loop form (convergence, fixed iterations, the coarse
-phase, exact metrics) and every search form.  The ``cuda`` tests hold the
+phase, exact metrics) and every search form.  The eager loop searches
+without the source mask, as the ICP did before its search took one, so
+the same test holds the mask's contract (a masked source's index 0 and
+d2 0.0 never reach the result) under every form.  The ``cuda`` tests hold the
 kernel to the eager step on the card.  The file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_icp_step.py
@@ -83,7 +86,12 @@ def _eager_icp(src, sm, tgt, tm, tn, seeds, params: ICPParams, method: str) -> I
     src, sm, tgt, tm, tn = (x.contiguous() for x in (src, sm, tgt, tm, tn))
     mask_f = sm.float()
     thr2 = params.max_correspondence_distance ** 2
-    search = icp_mod._search(params, sm, tgt, tm, tn)
+    # only the pruned search reads the source mask here
+    search_by = icp_mod._search(params, tgt, tm, tn)
+    by_mask = sm if params.nn_impl == "pruned" else None
+
+    def search(p):
+        return search_by(p, by_mask)
 
     def step(T, pts, m):
         p = transform_points(T, pts)
@@ -143,6 +151,55 @@ def test_card_loop_with_the_plain_step_is_the_eager_loop(pairs, monkeypatch, nam
     assert torch.equal(pairs[-1], seeds)
     if params.max_iterations:
         assert calls
+
+
+MASKED_SEARCHES = [("k1", BASE), ("k1_p2p", BASE), ("k4", BASE._replace(nn_impl="vpu_tq")),
+                   ("vpu", BASE._replace(nn_impl="vpu")), ("mxu", BASE._replace(nn_impl="mxu")),
+                   ("k1_coarse_exact", LOOPS[3][1])]
+
+
+@pytest.mark.parametrize("layout", ["prefix", "scattered", "one_pair_masked"])
+@pytest.mark.parametrize("name,params", MASKED_SEARCHES, ids=[c[0] for c in MASKED_SEARCHES])
+def test_source_mask_leaves_the_transforms_bit_identical(pairs, monkeypatch, layout, name,
+                                                          params):
+    """``icp_batch`` with the source mask passed to the search (K1, K3, K4:
+    index 0 and d2 0.0 for a masked source) gives the transforms, fitness,
+    RMSE, iterations and final deltas of the search without it, bit for
+    bit, on the voxel grid's prefix masks, on scattered masks (icp2planes'
+    ground and non-ground rows) and with a pair whose sources are all
+    masked."""
+    src, sm, tgt, tm, tn, seeds = (x.clone() for x in pairs)
+    if layout == "scattered":
+        rng = np.random.default_rng(5)
+        sm &= torch.from_numpy(rng.uniform(size=sm.shape) > 0.4)
+        tm &= torch.from_numpy(rng.uniform(size=tm.shape) > 0.4)
+    elif layout == "one_pair_masked":
+        sm[2] = False
+    method = "point_to_point" if name.endswith("p2p") else "point_to_plane"
+    real_k1, real_k4 = icp_mod._nn_search, icp_mod._nn_search_vals
+    seen = []
+
+    def spy(src_mask_seen):
+        def wrap(real):
+            def call(*args):
+                seen.append(args[-1] is not None)
+                return real(*args[:-1], None if not src_mask_seen else args[-1])
+            return call
+        return wrap
+
+    for masked in (True, False):
+        monkeypatch.setattr(icp_mod, "_nn_search", spy(masked)(real_k1))
+        monkeypatch.setattr(icp_mod, "_nn_search_vals", spy(masked)(real_k4))
+        got = icp_batch(src, sm, tgt, tm, tn, seeds, params, method)
+        if masked:
+            with_mask = got
+    assert seen and all(seen)
+    for a, b in zip(with_mask, got):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b), name
+    if layout == "one_pair_masked":
+        assert float(with_mask.fitness[2]) == 0.0
 
 
 def test_plain_step_advances_state_in_place(pairs):

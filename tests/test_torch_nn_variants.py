@@ -29,7 +29,8 @@ from lidar_slam_arvc_tpu.ops.nn import nn_search as xla_ref
 from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas, nn_search_pallas_vals
 from lidar_slam_arvc_tpu_torch.ops import _cuda, nn_pruned
 from lidar_slam_arvc_tpu_torch.ops.nn import (
-    FORMS, nn_search, nn_search_plain, nn_search_vals, nn_search_xla)
+    FORMS, _nn_search, _nn_search_vals, nn_search, nn_search_plain, nn_search_vals,
+    nn_search_vals_plain, nn_search_xla, swept_pairs)
 from lidar_slam_arvc_tpu_torch.utils import moments_variants, sass, sweep_variants
 
 torch.set_num_threads(1)
@@ -251,6 +252,110 @@ def test_plain_sweep_equal_for_every_chunking(rng, impl):
     assert (ref[0][1] == 0).all()
 
 
+@pytest.mark.parametrize("impl", sorted(FORMS))
+def test_chunk_edges_inside_tied_runs_keep_the_lowest_index(rng, impl):
+    """Runs of one repeated target (exact ties) with every chunk edge of
+    the plain sweep inside some run, and sources on the runs: every
+    chunking returns the run's first valid index, and equidistant targets
+    (the same d2 from other points) the lowest of them."""
+    B, S, T = 2, 24, 120
+    src, tgt, mask = _clouds(rng, S, T, masked=0.2)
+    src, tgt, mask = np.stack([src, src]), np.stack([tgt, tgt]), np.stack([mask, mask])
+    runs = [(3, 12), (14, 41), (45, 47), (60, 99)]       # [start, end) of each run
+    for k, (a, e) in enumerate(runs):
+        tgt[:, a:e] = tgt[:, a:a + 1]
+        mask[:, a] = mask[:, a + 1] = True
+        src[:, k] = tgt[:, a]
+    mask[1, 14:30] = False                # row 1: run 2 starts valid at 30
+    mask[1, 30] = True
+    # two targets at the same distance from source 5 in other chunks
+    src[:, 5] = 0.0
+    tgt[:, 101], tgt[:, 110] = (0.5, 0.0, 0.0), (0.0, -0.5, 0.0)
+    mask[:, [101, 110]] = True
+    got = [nn_search_plain(t(src), t(tgt), t(mask), impl, max_elems=c * B * S)
+           for c in (1, 2, 4, 5, 8, 13, 16, T)]
+    idx = got[0][0]
+    for i, d in got[1:]:
+        assert torch.equal(i, idx) and torch.equal(d, got[0][1])
+    assert idx[0, :4].tolist() == [3, 14, 45, 60]
+    assert idx[1, :4].tolist() == [3, 30, 45, 60]
+    if impl != "mxu":                     # the matmul form's d2 is |t|^2 - 2 s.t
+        assert idx[:, 5].tolist() == [101, 101]
+
+
+@pytest.mark.parametrize("impl", sorted(FORMS) + ["vals"])
+def test_masked_sources_report_index_0_and_d2_0(rng, impl):
+    """The plain versions' source-mask contract, as K1, K3 and K4 keep it:
+    a masked source reports index 0 (K4: target 0's point and normal) and
+    d2 0.0; the others what the search without a mask gives, which the
+    private entries give unchanged for a mask of None; batched and
+    unbatched alike."""
+    B, S, T = 3, 50, 90
+    src, tgt, mask = _clouds(rng, S, T)
+    src, tgt = np.stack([src] * B), np.stack([tgt] * B)
+    mask = np.stack([mask, mask, np.zeros(T, bool)])
+    nrm = rng.normal(size=(B, T, 3)).astype(np.float32)
+    smask = rng.uniform(size=(B, S)) > 0.5
+    smask[1] = False
+    if impl == "vals":
+        plain = nn_search_vals_plain(t(src), t(tgt), t(mask), t(nrm))
+        got = nn_search_vals_plain(t(src), t(tgt), t(mask), t(nrm), src_mask=t(smask))
+        priv = _nn_search_vals(t(src), t(tgt), t(mask), t(nrm), t(smask))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_nn_search_vals(t(src), t(tgt), t(mask), t(nrm), None), plain))
+        one = _nn_search_vals(t(src[0]), t(tgt[0]), t(mask[0]), t(nrm[0]), t(smask[0]))
+        want = (torch.where(t(smask), plain[0], 0.0),
+                torch.where(t(smask)[..., None], plain[1], t(tgt[:, :1])),
+                torch.where(t(smask)[..., None], plain[2], t(nrm[:, :1])))
+    else:
+        plain = nn_search_plain(t(src), t(tgt), t(mask), impl)
+        got = nn_search_plain(t(src), t(tgt), t(mask), impl, src_mask=t(smask))
+        priv = _nn_search(t(src), t(tgt), t(mask), impl, t(smask))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_nn_search(t(src), t(tgt), t(mask), impl, None), plain))
+        one = _nn_search(t(src[0]), t(tgt[0]), t(mask[0]), impl, t(smask[0]))
+        want = (torch.where(t(smask), plain[0], 0), torch.where(t(smask), plain[1], 0.0))
+    for a, b, c, w in zip(got, priv, one, want):
+        assert torch.equal(a, w) and torch.equal(b, w) and torch.equal(c, w[0])
+    d2 = got[0] if impl == "vals" else got[1]
+    assert (d2[~t(smask)].view(torch.int32) == 0).all()      # +0.0, bit for bit
+
+
+def _kernel_swept(smask, tmask, block, tile):
+    """Pairs the sweep scores, decided as the kernel decides: a block of
+    ``block`` sources is swept when one holds a valid source, a tile of
+    ``tile`` targets when one holds a valid target."""
+    total = 0
+    for sm, tm in zip(smask, tmask):
+        blocks = sum(sm[i:i + block].any() for i in range(0, len(sm), block))
+        tiles = sum(tm[i:i + tile].any() for i in range(0, len(tm), tile))
+        total += blocks * block * tiles * tile
+    return total
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_swept_pairs_counts_the_occupied_blocks_and_tiles(rows):
+    """``ops.nn.swept_pairs`` (``k1_pairs_swept`` on a card) from the valid
+    counts: on prefix masks, the pairs of the occupied source blocks and
+    target tiles, as the kernel's votes find them; on scattered masks of
+    the same counts the kernel scores more (more blocks and tiles hold a
+    valid point), which counts of a prefix cannot see."""
+    geo = {"threads": 128, "rows_per_thread": rows, "tile": 512}
+    rng = np.random.default_rng(rows)
+    S = T = 4096
+    vs = np.array([0, 1, 640, 2049, 4096])
+    vt = np.array([4096, 511, 513, 0, 3000])
+    prefix_s = np.arange(S) < vs[:, None]
+    prefix_t = np.arange(T) < vt[:, None]
+    block = 128 * rows
+    assert swept_pairs(vs, vt, geo) == _kernel_swept(prefix_s, prefix_t, block, 512)
+    scattered_s = np.stack([rng.permutation(m) for m in prefix_s])
+    scattered_t = np.stack([rng.permutation(m) for m in prefix_t])
+    assert _kernel_swept(scattered_s, scattered_t, block, 512) > swept_pairs(vs, vt, geo)
+    assert swept_pairs([S], [T], geo) == S * T
+    assert swept_pairs([], [], geo) == 0
+
+
 def _rank_order(d: np.ndarray) -> np.ndarray:
     """perm of the K5 kernel's rank counting: rank_k = #{m : d_m < d_k or
     (d_m == d_k and m < k)}, perm[rank_k] = k."""
@@ -332,7 +437,7 @@ def test_sweep_variant_source_sets_each_knob():
     """utils/sweep_variants.py edits exactly the tuned constants of
     nn_sweep.cuh, and refuses a header where one is missing."""
     header = open(f"{_cuda.CSRC}/nn_sweep.cuh").read()
-    values = {"rows": 2, "tile": 256, "chains": 1, "ctas_per_sm": 4, "threads": 64}
+    values = {"max_rows": 4, "tile": 256, "ctas_per_sm": 8, "min_split": 1, "threads": 64}
     out = sweep_variants.variant_source(header, values)
     for knob, v in values.items():
         assert f"constexpr int {sweep_variants.KNOBS[knob]} = {v};" in out
@@ -364,6 +469,29 @@ def test_sass_hot_loop_issue_slots():
     assert len(sass.largest_loop(func)) == 9
     hot = sass.hot_loop(func)
     assert len(hot) == 5 and sum(sass._opcode(t) == "FSEL" for t in hot) == 1
+
+
+def test_sass_running_minimum_counts_one_pair_per_fmnmx():
+    """utils/sass.py: in a sweep that keeps a running minimum (K1, K3, K4)
+    a scored pair is one FMNMX, ahead of the selects and compares of its
+    per-sub-tile bookkeeping."""
+    text = """
+        Function : k1
+.L_x_1:
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   FADD R8, R4, -R9 ;
+        /*0020*/                   FMUL R8, R8, R8 ;
+        /*0030*/                   FMNMX R10, R8, R10, PT ;
+        /*0040*/                   FADD R8, R5, -R9 ;
+        /*0050*/                   FMUL R8, R8, R8 ;
+        /*0060*/                   FMNMX R10, R8, R10, PT ;
+        /*0070*/                   FSETP.GEU.AND P0, PT, R10, R11, PT ;
+        /*0080*/                   SEL R12, R13, R12, !P0 ;
+        /*0090*/               @P1 BRA `(.L_x_1) ;
+"""
+    func = sass.parse(text)["k1"]
+    assert sass.pairs_in(sass.hot_loop(func)) == (2, "FMNMX")
+    assert sass.issue_slots_per_pair(func) == (5.0, 0.0, 10, 2, "FMNMX")
 
 
 def test_moments_variant_source_sets_each_knob():
