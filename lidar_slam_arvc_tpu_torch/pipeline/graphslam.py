@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from lidar_slam_arvc_tpu_torch.graph import PoseGraph
+from lidar_slam_arvc_tpu_torch.graph.builder import DENSE_MAX_POSES
 from lidar_slam_arvc_tpu_torch.io.euroc import TIME, EurocDataset, trajectory_from_table
 from lidar_slam_arvc_tpu_torch.io.utm import filter_gps, gps2utm
 from lidar_slam_arvc_tpu_torch.keyframes import KeyframeStore
@@ -340,7 +341,7 @@ def _write_solution(directory, euroc, graph, scan_times, solution_lidar,
     # skip-sampled ones (the ellipses drawn) by PCG beyond
     t_marg = time.time()
     skip = max(n // 64, 1)
-    if graph.max_poses <= 256:
+    if graph.max_poses <= DENSE_MAX_POSES:
         covs = graph.marginal_covariances()
     else:
         idx = np.arange(0, graph.n_poses, skip)

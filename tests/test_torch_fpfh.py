@@ -79,19 +79,26 @@ def _t(*arrays):
 @pytest.fixture(scope="module")
 def scene():
     """tests/test_global_reg.py's box world: two scans 2.3 m and 0.6 rad
-    apart, voxelised at 0.2 m into capacity CAP, normals at r = 0.4, by
-    the JAX package."""
+    apart, voxelised at 0.2 m into capacity CAP, normals at r = 0.4, made
+    by the port and handed to both packages as the JAX package's Clouds."""
     rng = np.random.default_rng(11)
     world = synthetic.make_world(rng, **BOX_WORLD)
     T_i, T_j = synthetic._yaw_T(0.0, 0.0, 0.0), synthetic._yaw_T(2.0, 1.0, 0.6)
     clouds = []
     for T in (T_i, T_j):
-        c = cl_ref.from_numpy(synthetic.render_scan(world, T, rng, max_range=10.0,
-                                                    max_points=3000), CAP)
-        c = cl_ref.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
-        c = cl_ref.voxel_downsample(c, 0.2)
-        clouds.append(cl_ref.estimate_normals(c, radius=0.4))
+        c = cl.from_numpy(synthetic.render_scan(world, T, rng, max_range=10.0,
+                                                max_points=3000), CAP, device="cpu")
+        c = cl.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
+        c = cl.estimate_normals(cl.voxel_downsample(c, 0.2), radius=0.4)
+        clouds.append(cl_ref.Cloud(*(jnp.asarray(x.numpy())
+                                     for x in (c.points, c.mask, c.normals))))
     return clouds, np.linalg.inv(T_i) @ T_j
+
+
+@pytest.fixture(scope="module")
+def reference_features(scene):
+    """The JAX package's FPFH of the scene's two clouds."""
+    return [fpfh_ref(c, 1.0, query_block=256, tgt_block=256) for c in scene[0]]
 
 
 @pytest.mark.parametrize("D", [3, 33])
@@ -125,10 +132,10 @@ def test_feature_searches_match_reference(D):
     np.testing.assert_array_equal(jb.numpy(), np.stack([j1.numpy()] * 2))
 
 
-def test_fpfh_matches_reference(scene):
+def test_fpfh_matches_reference(scene, reference_features):
     clouds, _ = scene
     c = clouds[0]
-    ref = np.asarray(fpfh_ref(c, 1.0, query_block=256, tgt_block=256))
+    ref = np.asarray(reference_features[0])
     port = cl.Cloud(*(x[None] for x in _t(c.points, c.mask, c.normals)))
     got = compute_fpfh(port, 1.0)
     assert got.shape == (1, CAP, 33)
@@ -145,17 +152,17 @@ def test_three_point_transform_matches_reference():
     ps = rng.normal(scale=3.0, size=(64, 3, 3)).astype(np.float32)
     T_true = synthetic._yaw_T(1.0, -2.0, 0.7, 0.3).astype(np.float32)
     qs = (ps @ T_true[:3, :3].T + T_true[:3, 3]).astype(np.float32)
-    ref = np.asarray(greg_ref._three_point_transform(jnp.asarray(ps), jnp.asarray(qs)))
+    ref = np.asarray(jax.jit(greg_ref._three_point_transform)(ps, qs))
     got = global_reg._three_point_transform(*_t(ps, qs)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
     np.testing.assert_allclose(got, np.broadcast_to(T_true, got.shape), atol=1e-4)
 
 
-def test_ransac_registration_matches_reference(scene):
+def test_ransac_registration_matches_reference(scene, reference_features):
     """The reference's features, correspondences and hypothesis draws in
     both packages: the same winning transform and score."""
     clouds, T_gt = scene
-    feats = [fpfh_ref(c, 1.0, query_block=256, tgt_block=256) for c in clouds]
+    feats = reference_features
     src, tgt = clouds[1], clouds[0]
     key = jax.random.PRNGKey(3)
     params = greg_ref.GlobalRegParams(fpfh_radius=1.0)

@@ -50,22 +50,24 @@ def _scan(rng, n_points=3000):
 def test_se3_matches_reference(rng):
     xi = (rng.normal(size=(64, 6)) * [0.5, 0.5, 0.5, 3, 3, 3]).astype(np.float32)
     xi[:4] *= 1e-7                      # the series branches
-    np.testing.assert_allclose(n(se3.so3_exp(t(xi[:, :3]))),
-                               n(geom_ref.so3_exp(jnp.asarray(xi[:, :3]))),
-                               atol=1e-6)
-    Ta = se3.se3_exp(t(xi))
-    Ta_ref = geom_ref.se3_exp(jnp.asarray(xi))
-    np.testing.assert_allclose(n(Ta), n(Ta_ref), atol=GEOM_ATOL)
     Tb = se3.se3_exp(t(xi[::-1].copy()))
-    np.testing.assert_allclose(
-        n(se3.compose(Ta, Tb)),
-        n(geom_ref.compose(Ta_ref, jnp.asarray(n(Tb)))), atol=GEOM_ATOL)
-    np.testing.assert_allclose(n(se3.inverse(Ta)), n(geom_ref.inverse(Ta_ref)),
-                               atol=GEOM_ATOL)
     pts = rng.normal(scale=20.0, size=(64, 50, 3)).astype(np.float32)
-    np.testing.assert_allclose(
-        n(se3.transform_points(Ta, t(pts))),
-        n(geom_ref.transform_points(Ta_ref, jnp.asarray(pts))), atol=1e-4)
+
+    @jax.jit
+    def reference(xi, Tb, pts):
+        """The reference's functions compiled as one program."""
+        Ta = geom_ref.se3_exp(xi)
+        return (geom_ref.so3_exp(xi[:, :3]), Ta, geom_ref.compose(Ta, Tb),
+                geom_ref.inverse(Ta), geom_ref.transform_points(Ta, pts))
+
+    R_ref, Ta_ref, TaTb_ref, inv_ref, pts_ref = reference(xi, n(Tb), pts)
+    np.testing.assert_allclose(n(se3.so3_exp(t(xi[:, :3]))), n(R_ref), atol=1e-6)
+    Ta = se3.se3_exp(t(xi))
+    np.testing.assert_allclose(n(Ta), n(Ta_ref), atol=GEOM_ATOL)
+    np.testing.assert_allclose(n(se3.compose(Ta, Tb)), n(TaTb_ref), atol=GEOM_ATOL)
+    np.testing.assert_allclose(n(se3.inverse(Ta)), n(inv_ref), atol=GEOM_ATOL)
+    np.testing.assert_allclose(n(se3.transform_points(Ta, t(pts))), n(pts_ref),
+                               atol=1e-4)
 
 
 def test_crop_exact(rng):
@@ -160,11 +162,10 @@ def test_eigh3_matches_reference(rng):
     """Same closed form, same f32 operations: agreement to f32 rounding."""
     A = rng.normal(size=(256, 3, 3)).astype(np.float32)
     A = A @ np.swapaxes(A, 1, 2)
-    np.testing.assert_allclose(n(eigh3.eigvals_sym3(t(A))),
-                               n(eigh3_ref.eigvals_sym3(jnp.asarray(A))),
-                               atol=1e-4)
+    ev_ref, v_ref = map(n, jax.jit(lambda A: (
+        eigh3_ref.eigvals_sym3(A), eigh3_ref.smallest_eigenvector_sym3(A)))(A))
+    np.testing.assert_allclose(n(eigh3.eigvals_sym3(t(A))), ev_ref, atol=1e-4)
     v = n(eigh3.smallest_eigenvector_sym3(t(A)))
-    v_ref = n(eigh3_ref.smallest_eigenvector_sym3(jnp.asarray(A)))
     assert np.abs(np.sum(v * v_ref, axis=1)).min() > 0.9999
 
 
@@ -176,9 +177,8 @@ def test_estimate_normals_matches_reference(rng):
     c, _ = cl.voxel_downsample_counted(c, 0.2)
     radius = 0.5
     got = cl.estimate_normals(c, radius)
-    ref = cl_ref.estimate_normals(
-        cl_ref.Cloud(jnp.asarray(n(c.points)), jnp.asarray(n(c.mask))),
-        radius, impl="pallas_interpret")
+    ref = jax.jit(lambda p, m: cl_ref.estimate_normals(
+        cl_ref.Cloud(p, m), radius, impl="pallas_interpret"))(n(c.points), n(c.mask))
     from lidar_slam_arvc_tpu_torch.cloud.normals import _cov_from_moments
     from lidar_slam_arvc_tpu_torch.ops.moments import ball_moments
     count, s1, s2 = ball_moments(c.points, c.points, c.mask, radius,

@@ -28,6 +28,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation as SR
 
+import jax
 import jax.numpy as jnp
 
 from lidar_slam_arvc_tpu.graph import DEFAULT_SIGMAS as SIGMAS_REF
@@ -46,6 +47,14 @@ torch.set_num_threads(1)
 rotations = importlib.import_module("lidar_slam_arvc_tpu_torch.geom.rotations")
 rot_ref = importlib.import_module("lidar_slam_arvc_tpu.geom.rotations")
 se3_ref = importlib.import_module("lidar_slam_arvc_tpu.geom.se3")
+# the reference's functions that run eagerly, each compiled as one program
+# (eager, every primitive compiles for its shapes on first use)
+ref_jit = {name: jax.jit(fn) for name, fn in (
+    ("so3_log", rot_ref.so3_log), ("rot_to_euler_both", rot_ref.rot_to_euler_both),
+    ("se3_exp", se3_ref.se3_exp), ("se3_log", se3_ref.se3_log), ("t2v", se3_ref.t2v),
+    ("between", solver_ref._between_residuals), ("gps", solver_ref._gps_residuals),
+    ("prior", solver_ref._prior_residuals), ("bcr_factor", bcr_ref.bcr_factor),
+    ("bcr_solve", bcr_ref.bcr_solve))}
 
 STATE = FACTOR_FIELDS + ("poses", "n_poses", "n_chain", "n_loop", "n_gps",
                          "n_prior", "chain_capacity", "T0", "T0_gps")
@@ -110,14 +119,14 @@ def _rotations(rng, n):
 def test_so3_log_and_euler_match_reference(rng):
     R = _rotations(rng, 64)
     got = rotations.so3_log(torch.from_numpy(R)).numpy()
-    ref = np.asarray(rot_ref.so3_log(jnp.asarray(R)))
+    ref = np.asarray(ref_jit["so3_log"](R))
     np.testing.assert_allclose(got, ref, atol=1e-5)
     # near pi the f32 axis recovery holds to ~1e-4 (the reference's own
     # near-pi test, tests/test_geom.py, allows 1e-3)
     back = se3.so3_exp(torch.from_numpy(got)).numpy()
     np.testing.assert_allclose(back, R, atol=2e-4)
     for a, b in zip(rotations.rot_to_euler_both(torch.from_numpy(R)),
-                    rot_ref.rot_to_euler_both(jnp.asarray(R))):
+                    ref_jit["rot_to_euler_both"](R)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
     np.testing.assert_array_equal(
         rotations.so3_vee(se3.so3_hat(torch.from_numpy(got))).numpy(), got)
@@ -129,14 +138,14 @@ def test_se3_log_exp_t2v_match_reference(rng):
     xi[1, :3] = 1e-7
     xi = xi.astype(np.float32)
     T = se3.se3_exp(torch.from_numpy(xi))
-    np.testing.assert_allclose(T.numpy(), np.asarray(se3_ref.se3_exp(jnp.asarray(xi))),
+    np.testing.assert_allclose(T.numpy(), np.asarray(ref_jit["se3_exp"](xi)),
                                atol=1e-5)
     got = se3.se3_log(T).numpy()
-    np.testing.assert_allclose(got, np.asarray(se3_ref.se3_log(jnp.asarray(T.numpy()))),
+    np.testing.assert_allclose(got, np.asarray(ref_jit["se3_log"](T.numpy())),
                                atol=1e-5)
     np.testing.assert_allclose(got, xi, atol=1e-4)
     np.testing.assert_allclose(se3.t2v(T).numpy(),
-                               np.asarray(se3_ref.t2v(jnp.asarray(T.numpy()))),
+                               np.asarray(ref_jit["t2v"](T.numpy())),
                                atol=1e-5)
     w = torch.from_numpy(xi[:, :3])
     np.testing.assert_allclose(
@@ -170,15 +179,16 @@ def test_assemble_matches_reference_and_float64_oracle():
         H64[:] += Jf.T @ W2 @ Jf
         b64[:] += Jf.T @ W2 @ r
 
-    r, A, B = map(np.asarray, solver_ref._between_residuals(poses, f))
-    for e in np.nonzero(np.asarray(f.bt_winv).any(1))[0]:
+    r, A, B = map(np.asarray, ref_jit["between"](poses, f))
+    rg, Jg = map(np.asarray, ref_jit["gps"](poses, f))
+    rp, Jp = map(np.asarray, ref_jit["prior"](poses, f))
+    f = type(f)(*map(np.asarray, f))
+    for e in np.nonzero(f.bt_winv.any(1))[0]:
         add([int(f.bt_i[e]), int(f.bt_j[e])], np.concatenate([A[e], B[e]], 1),
-            r[e], np.asarray(f.bt_winv[e]))
-    rg, Jg = map(np.asarray, solver_ref._gps_residuals(poses, f))
-    for e in np.nonzero(np.asarray(f.gps_winv).any(1))[0]:
-        add([int(f.gps_i[e])], Jg[e], rg[e], np.asarray(f.gps_winv[e]))
-    rp, Jp = map(np.asarray, solver_ref._prior_residuals(poses, f))
-    add([0], Jp[0], rp[0], np.asarray(f.pr_winv[0]))
+            r[e], f.bt_winv[e])
+    for e in np.nonzero(f.gps_winv.any(1))[0]:
+        add([int(f.gps_i[e])], Jg[e], rg[e], f.gps_winv[e])
+    add([0], Jp[0], rp[0], f.pr_winv[0])
     for k in range(g.n_poses, g.max_poses):
         H64[6 * k: 6 * k + 6, 6 * k: 6 * k + 6] = np.eye(6)
     s64 = max(np.abs(H64).max(), 1.0)
@@ -287,9 +297,9 @@ def test_bcr_and_tridiag_match_dense(rng):
         for got in (x, x_tri):
             assert np.abs(got - x_ref).max() / max(np.abs(x_ref).max(), 1) < 1e-4
         if n == 8:
-            lv, Dr = bcr_ref.bcr_factor(jnp.asarray(D), jnp.asarray(E))
+            lv, Dr = ref_jit["bcr_factor"](D, E)
             np.testing.assert_allclose(
-                x[0], np.asarray(bcr_ref.bcr_solve(lv, Dr, jnp.asarray(b[0]))),
+                x[0], np.asarray(ref_jit["bcr_solve"](lv, Dr, b[0])),
                 atol=1e-4 * max(np.abs(x_ref).max(), 1))
     with pytest.raises(ValueError, match="power-of-two"):
         bcr.bcr_factor(torch.eye(6).repeat(12, 1, 1), torch.zeros(12, 6, 6))
@@ -323,8 +333,11 @@ def test_marginals_match_reference_and_float64_inverse():
     """Dense chunked marginals and the matrix-free PCG blocks of both
     packages against a float64 inverse of the reference's H."""
     g, _ = loopy_graph(n=20, cap=32)
-    g.optimize(max_iterations=10)
+    # linearised at the port's solution (its solves are held to the
+    # reference's above), carried into the reference's graph
     p = PoseGraph.from_reference_state(reference_state(g), device="cpu")
+    p.optimize(max_iterations=10)
+    g.poses = p.poses.copy()
     H, _ = solver_ref._assemble(jnp.asarray(g.poses), g._factor_data(),
                                 jnp.int32(g.n_poses))
     cov64 = np.linalg.inv(np.asarray(H, np.float64) + 1e-9 * np.eye(H.shape[0]))
@@ -348,7 +361,7 @@ def test_marginals_nan_where_the_cholesky_fails():
     (both packages' PCG blocks are NaN as well)."""
     rng = np.random.default_rng(3)
     T_gt = synthetic.make_trajectory(8, radius=4.0)
-    g = PoseGraphRef(max_poses=8)
+    g = PoseGraphRef(max_poses=32)      # the capacity of the marginals test above
     for i in range(7):
         rel = np.linalg.inv(T_gt[i]) @ T_gt[i + 1]
         g.add_initial_estimate(_noisy(rel, rng), i + 1)
@@ -373,8 +386,7 @@ def test_singular_preconditioner_block_is_nonfinite():
     E[-1] = 0.0
     D[[0, 3]] = 0.0      # inverted directly: 3 by BCR, 0 by the tridiagonal
     b = np.ones((8, 6), np.float32)
-    ref = bcr_ref.bcr_solve(*bcr_ref.bcr_factor(jnp.asarray(D), jnp.asarray(E)),
-                            jnp.asarray(b))
+    ref = ref_jit["bcr_solve"](*ref_jit["bcr_factor"](D, E), b)
     assert not np.isfinite(np.asarray(ref)).all()
     Dt, Et, bt = torch.from_numpy(D), torch.from_numpy(E), torch.from_numpy(b)
     assert not torch.isfinite(bcr.bcr_solve(*bcr.bcr_factor(Dt, Et), bt)).all()

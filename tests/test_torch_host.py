@@ -4,6 +4,7 @@ The port's own CSV/YAML code (no pandas, no PyYAML) must write the same
 bytes as the JAX package's pandas/PyYAML code and read the same values.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -37,14 +38,25 @@ def _random_transforms(rng, n):
     return T
 
 
-def test_port_imports_no_jax_pandas_yaml():
-    """Importing every module of the port (``compat`` among them) loads
-    none of jax, pandas, yaml or the JAX package, nor matplotlib or scipy,
-    which the port imports only when it draws a figure or makes a mesh,
-    and initialises no process group and starts no process (the
-    parallel/ modules; checked in a fresh interpreter)."""
+HOST_MODULES = ["lidar_slam_arvc_tpu_torch.viz", "lidar_slam_arvc_tpu_torch.io.rosbag",
+                "lidar_slam_arvc_tpu_torch.pipeline.cli"]
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """One fresh interpreter: the host modules imported one after another,
+    with the modules of matplotlib, scipy, jax, pandas and yaml loaded after
+    each, then every module of the port and ``chip_smoke``.  A module loads
+    the same modules whatever was imported before it, so what is loaded
+    after the k-th host module contains what that module loads alone."""
     code = (
-        "import multiprocessing, pkgutil, sys, importlib, torch\n"
+        "import importlib, json, multiprocessing, pkgutil, sys\n"
+        "banned = lambda roots: sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
+        "host = {}\n"
+        f"for name in {HOST_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    host[name] = banned(('matplotlib', 'scipy', 'jax', 'pandas', 'yaml'))\n"
+        "import torch\n"
         "import lidar_slam_arvc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -53,29 +65,29 @@ def test_port_imports_no_jax_pandas_yaml():
         "assert 'lidar_slam_arvc_tpu_torch.compat' in sys.modules\n"
         "assert not torch.distributed.is_initialized()\n"
         "assert not multiprocessing.active_children()\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'pandas', 'yaml', 'lidar_slam_arvc_tpu',\n"
-        "              'matplotlib', 'scipy'))\n"
-        "print(repr(bad))\n")
+        "print(json.dumps({'host': host, 'all': banned(\n"
+        "    ('jax', 'jaxlib', 'pandas', 'yaml', 'lidar_slam_arvc_tpu', 'matplotlib',\n"
+        "     'scipy'))}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("module", [
-    "lidar_slam_arvc_tpu_torch.viz", "lidar_slam_arvc_tpu_torch.io.rosbag",
-    "lidar_slam_arvc_tpu_torch.pipeline.cli"])
-def test_host_modules_import_no_plotting_or_scipy(module):
-    """The viz package, the bag reader and the CLI alone, in a fresh
+def test_port_imports_no_jax_pandas_yaml(fresh_imports):
+    """Importing every module of the port (``compat`` among them) loads
+    none of jax, pandas, yaml or the JAX package, nor matplotlib or scipy,
+    which the port imports only when it draws a figure or makes a mesh,
+    and initialises no process group and starts no process (the
+    parallel/ modules; checked in a fresh interpreter)."""
+    assert fresh_imports["all"] == []
+
+
+@pytest.mark.parametrize("module", HOST_MODULES)
+def test_host_modules_import_no_plotting_or_scipy(fresh_imports, module):
+    """The viz package, the bag reader and the CLI, in a fresh
     interpreter: no matplotlib, scipy, jax, pandas or yaml at import."""
-    code = (f"import sys, {module}\n"
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "      ('matplotlib', 'scipy', 'jax', 'pandas', 'yaml')))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert fresh_imports["host"][module] == []
 
 
 def test_chip_smoke_refuses_without_gpu():

@@ -359,10 +359,10 @@ def test_namedtuple_defaults_match_reference():
 
 def test_quickstart_on_the_cpu(tmp_path, capsys, monkeypatch):
     """``python -m lidar_slam_arvc_tpu_torch.pipeline.quickstart --device
-    cpu`` cut to 8 scans: both stages' outputs, an ATE within the CLI
-    tests' bound, the viewer's artifacts."""
+    cpu`` cut to 8 scans of 1000 points at capacity 1024: both stages'
+    outputs, an ATE within the CLI tests' bound, the viewer's artifacts."""
     d = str(tmp_path / "qs")
-    monkeypatch.setitem(quickstart.SIZES, "cpu", (8,) + quickstart.SIZES["cpu"][1:])
+    monkeypatch.setitem(quickstart.SIZES, "cpu", (8, 1000, 1024, 1024))
     out = quickstart.main([d, "--device", "cpu"])
     printed = capsys.readouterr().out
     assert "scanmatcher:" in printed and "graphSLAM:" in printed

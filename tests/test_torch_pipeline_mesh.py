@@ -1,8 +1,9 @@
 """The port's CLI on several ranks vs one rank and vs the JAX package.
 
-The counterpart of tests/test_pipeline_mesh.py, at its size (16 scans,
-``make_dataset(seed=7, radius=8.0, scan_points=2000)``, capacity 2048,
-batch 2, 15 iterations): ``cli run --devices 2``, ``cli scanmatch
+The counterpart of tests/test_pipeline_mesh.py, at half its size (8 scans
+where it has 16, ``make_dataset(seed=7, radius=8.0, scan_points=2000)``,
+capacity 2048, batch 2, 15 iterations; 4 ranks still take 2 scans each
+and 3 halo rows): ``cli run --devices 2``, ``cli scanmatch
 --devices 4 --shard-scans`` and ``dryrun_multichip(2, "cpu")``, each
 spawning its ranks (gloo on the CPU, the kernels' plain versions).
 Tolerances:
@@ -12,13 +13,14 @@ Tolerances:
   transforms within 1e-3 of the JAX package's one-device run with its TPU
   kernels in Pallas interpret mode, entry by entry as
   tests/test_pipeline_mesh.py compares its own (the port's one-rank run
-  is 7.7e-4 from it, a pose 1.09e-3 m: on this pillar world f32 rounding
-  turns the normals, ROADMAP Queue 3); ATE < 0.2 m;
+  is 2.5e-4 from it, a pose 2.5e-4 m; at 16 scans 7.7e-4 and 1.09e-3 m:
+  on this pillar world f32 rounding turns the normals, ROADMAP Queue 3);
+  ATE < 0.2 m;
 * stage 2 (the slam parameters of tests/test_torch_stage2.py, loop closing
   on): the Schur solve's positions within 5e-3 m of the one-rank dense
   solve (tests/test_pipeline_mesh.py's bound) and ``loop_closures.csv``
-  byte-equal.  This circle's 3.1 m scan spacing leaves no triplet window
-  (1-2 m between candidates), so no closure is drawn here; the sharded
+  byte-equal.  This circle's 6.1 m scan spacing leaves no triplet window,
+  so no closure is drawn here; the sharded
   store's registration is held bit-equal to one rank's in
   tests/test_torch_parallel.py.
 """
@@ -43,7 +45,7 @@ from lidar_slam_arvc_tpu_torch.utils.metrics import ate
 
 torch.set_num_threads(1)
 
-N_SCANS = 16
+N_SCANS = 8
 CFG_KW = dict(raw_capacity=4096, capacity=2048, batch_size=2, max_iterations=15)
 ARGS = ["--capacity", "2048", "--batch-size", "2", "--device", "cpu"]
 SLAM = {"skip_loop_closing": 12, "skip_optimization": 12,
@@ -146,8 +148,9 @@ def test_cli_run_two_ranks(dataset, one_rank, reference_relative, reports, tmp_p
 
 def test_cli_scanmatch_sharded_four_ranks(dataset, one_rank, reference_relative,
                                           reports, tmp_path):
-    """``--devices 4 --shard-scans``: each rank loads only its block of 4
-    scans; the pairs across blocks take the next rank's first scan."""
+    """``--devices 4 --shard-scans``: each rank loads only its block of
+    N_SCANS / 4 scans; the pairs across blocks take the next rank's first
+    scan."""
     d = str(tmp_path / "euroc")
     shutil.copytree(dataset[0], d)
     assert cli.main(["scanmatch", "-i", d, "--devices", "4", "--shard-scans",
@@ -156,7 +159,7 @@ def test_cli_scanmatch_sharded_four_ranks(dataset, one_rank, reference_relative,
     _check_ranks(reports, 4, "scanmatch")
     for r in reports:
         prof = r["scanmatch"]["profile"]
-        assert r["scanmatch"]["scans_loaded_locally"] == 4
+        assert r["scanmatch"]["scans_loaded_locally"] == N_SCANS // 4
         assert prof["shard_scans"] and prof["mesh_devices"] == 4
         assert prof["collectives"]["halo"]["calls"] == 3
 

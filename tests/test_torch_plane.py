@@ -95,18 +95,20 @@ def reference_sample(c, key, seed_height=-0.5):
 @pytest.fixture(scope="module")
 def scans():
     """Four voxelised scans of bench.py's world with normals, made by the
-    JAX package (K2's original in interpret mode)."""
+    port (K2's plain version) and handed to both packages as the JAX
+    package's Clouds."""
     rng = np.random.default_rng(0)
     world = synthetic.make_world(rng, extent=20.0, n_ground=8000,
                                  n_pillars=0, n_boxes=12)
     T = synthetic.make_trajectory(40, radius=8.0)[:4]
     out = []
     for Ti in T:
-        c = cl_ref.from_numpy(synthetic.render_scan(world, Ti, rng,
-                                                    max_points=2500), CAP)
-        c = cl_ref.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
-        c = cl_ref.voxel_downsample(c, 0.2)
-        out.append(normals_ref.estimate_normals(c, 0.5, impl="pallas_interpret"))
+        c = cl.from_numpy(synthetic.render_scan(world, Ti, rng, max_points=2500),
+                          CAP, device="cpu")
+        c = cl.crop_radius_height(c, 0.5, 35.0, -1.0, 50.0)
+        c = cl.estimate_normals(cl.voxel_downsample(c, 0.2), 0.5)
+        out.append(cl_ref.Cloud(*(jnp.asarray(x.numpy())
+                                  for x in (c.points, c.mask, c.normals))))
     return out, T
 
 
@@ -121,10 +123,10 @@ def test_euler_to_rot_and_transform_from_euler_match_reference():
     abg[0] = 0.0
     abg[1] = [0.3, np.pi / 2, -0.2]                     # gimbal lock
     pos = rng.normal(size=(64, 3)).astype(np.float32)
-    R_ref = np.asarray(rot_ref.euler_to_rot(jnp.asarray(abg)))
+    R_ref, T_ref = map(np.asarray, jax.jit(lambda pos, abg: (
+        rot_ref.euler_to_rot(abg), se3_ref.transform_from_euler(pos, abg)))(pos, abg))
     R = rotations.euler_to_rot(torch.from_numpy(abg)).numpy()
     np.testing.assert_allclose(R, R_ref, atol=1e-6)
-    T_ref = np.asarray(se3_ref.transform_from_euler(jnp.asarray(pos), jnp.asarray(abg)))
     T = se3.transform_from_euler(torch.from_numpy(pos), torch.from_numpy(abg)).numpy()
     np.testing.assert_allclose(T, T_ref, atol=1e-6)
 

@@ -113,18 +113,27 @@ def _run(inputs, ck, key=7):
                                 checkpoint_path=ck, checkpoint_key=key)
 
 
-def test_resume_mid_stage(matcher_inputs, tmp_path):
+@pytest.fixture(scope="module")
+def checkpointed(matcher_inputs, tmp_path_factory):
+    """A checkpointed run of every group: its transforms, its stats and
+    the checkpoint it leaves behind."""
+    ck = str(tmp_path_factory.mktemp("checkpointed") / "ck.npz")
+    full, st = _run(matcher_inputs, ck)
+    return full, st, dict(np.load(ck))
+
+
+def test_resume_mid_stage(matcher_inputs, checkpointed, tmp_path):
     """tests/test_pipeline.py::TestCheckpointResume, bit for bit: a
     checkpointed run gives the fused run's transforms and stats; cut back
     to 2 groups with the later transforms zeroed, it resumes to the same
     transforms, running only the missing groups."""
     fused, stats = matcher_inputs[2:]
     ck = str(tmp_path / "ck.npz")
-    full, st = _run(matcher_inputs, ck)
+    full, st = checkpointed[:2]
     np.testing.assert_array_equal(full, fused)
     for k in stats:
         np.testing.assert_array_equal(st[k], stats[k], k)
-    saved = dict(np.load(ck))
+    saved = {k: v.copy() for k, v in checkpointed[2].items()}
     assert int(saved["batches_done"]) == 4 and int(saved["n_pairs"]) == N_SCANS - 1
     saved["batches_done"] = 2
     saved["transforms"][8:] = 0.0
@@ -152,15 +161,14 @@ def test_mismatched_or_unreadable_checkpoint_recomputes(matcher_inputs, tmp_path
     np.testing.assert_array_equal(out, fused)
 
 
-def test_checkpoints_cross_between_the_packages(matcher_inputs, tmp_path):
+def test_checkpoints_cross_between_the_packages(matcher_inputs, checkpointed, tmp_path):
     """The port's checkpoint, cut back by one group, resumes in the JAX
     package, which writes the last group's transforms in its own format;
     the port then reads that checkpoint as complete and returns it whole:
     the port's groups, then the JAX package's last group."""
     scans, rel_odo, fused = matcher_inputs[:3]
     ck = str(tmp_path / "ck.npz")
-    _run(matcher_inputs, ck)
-    saved = dict(np.load(ck))
+    saved = dict(checkpointed[2])
     saved["batches_done"] = 3
     np.savez(ck, **saved)
     cfg_ref = IcpConfigRef(**{k: getattr(CFG, k) for k in

@@ -38,7 +38,6 @@ from lidar_slam_arvc_tpu.loop import LoopCloser as LoopCloserRef
 from lidar_slam_arvc_tpu.loop.loopclosing import _rot_to_euler_both_np as euler_ref
 from lidar_slam_arvc_tpu.pipeline import graphslam as graphslam_ref
 from lidar_slam_arvc_tpu.pipeline import preprocess as prep_ref
-from lidar_slam_arvc_tpu.pipeline.scanmatcher import run_scanmatcher as run_sm_ref
 from lidar_slam_arvc_tpu.registration import ICPParams as ICPParamsRef
 from lidar_slam_arvc_tpu.utils.config import IcpConfig as IcpConfigRef
 from lidar_slam_arvc_tpu_torch.graph import PoseGraph
@@ -49,13 +48,18 @@ from lidar_slam_arvc_tpu_torch.loop import LoopCloser
 from lidar_slam_arvc_tpu_torch.loop.loopclosing import _rot_to_euler_both_np
 from lidar_slam_arvc_tpu_torch.pipeline import cli
 from lidar_slam_arvc_tpu_torch.pipeline.graphslam import run_graphslam
+from lidar_slam_arvc_tpu_torch.pipeline.scanmatcher import run_scanmatcher
 from lidar_slam_arvc_tpu_torch.utils import synthetic
 from lidar_slam_arvc_tpu_torch.utils.config import IcpConfig
 from lidar_slam_arvc_tpu_torch.utils.metrics import ate
 
 torch.set_num_threads(1)
 
-N_SCANS = 40
+# the dataset: 20 scans on a 3 m circle, the 0.94 m spacing of
+# tests/test_loopclosing.py's 40-pose circle (N_POSES, radius 6 m), which
+# the loop closer's own cases below keep
+N_SCANS = 20
+N_POSES = 40
 CFG = dict(raw_capacity=4096, capacity=2048, batch_size=8, max_iterations=15)
 STATE = FACTOR_FIELDS + ("poses", "n_poses", "n_chain", "n_loop", "n_gps",
                          "n_prior", "chain_capacity", "T0", "T0_gps")
@@ -84,10 +88,12 @@ def reference_kernels(monkeypatch):
 @pytest.fixture(scope="module")
 def stage1(tmp_path_factory):
     """A closed circle of box-world scans whose triplet windows are
-    satisfiable, with the JAX package's stage-1 outputs."""
+    satisfiable, with the port's stage-1 outputs (the CSVs stage 2 of
+    either package reads; tests/test_torch_stage1.py holds the port's
+    stage 1 to the JAX package's)."""
     d = str(tmp_path_factory.mktemp("stage2") / "euroc")
     info = synthetic.make_dataset(
-        d, n_scans=N_SCANS, seed=9, radius=6.0, scan_points=2000,
+        d, n_scans=N_SCANS, seed=9, radius=3.0, scan_points=2000,
         max_range=18.0,
         world_kwargs={"extent": 15.0, "n_ground": 6000, "n_pillars": 0,
                       "n_boxes": 15},
@@ -96,7 +102,7 @@ def stage1(tmp_path_factory):
         slam_params={"skip_loop_closing": 12, "skip_optimization": 12,
                      "radius_threshold": 3.0, "distance_backwards": 8.0,
                      "number_of_triplets_loop_closing": 10})
-    out = run_sm_ref(d, cfg=IcpConfigRef(**CFG), progress=False)
+    out = run_scanmatcher(d, cfg=IcpConfig(**CFG), progress=False, device="cpu")
     return d, info, out["global"]
 
 
@@ -155,20 +161,20 @@ def test_run_command_fused_handoff(tmp_path, voxel, reused):
     full resolution; a reloaded store then gives the same solution."""
     d = str(tmp_path / "run")
     synthetic.make_dataset(
-        d, n_scans=8, seed=14, radius=4.0, scan_points=1200,
+        d, n_scans=5, seed=14, radius=4.0, scan_points=600,
         world_kwargs={"extent": 12.0, "n_ground": 2000, "n_pillars": 0,
                       "n_boxes": 8},
         scanmatcher_params={"voxel_size": voxel, "delta_time": 1.0,
                             "start_index": 0},
         slam_params={"skip_loop_closing": 4, "skip_optimization": 4,
                      "number_of_triplets_loop_closing": 2})
-    argv = ["-i", d, "--capacity", "1024", "--batch-size", "4", "--device", "cpu"]
+    argv = ["-i", d, "--capacity", "512", "--batch-size", "4", "--device", "cpu"]
     assert cli.main(["run"] + argv) == 0
     prof_path = d + "/robot0/viz/graphslam_profile.json"
     with open(prof_path) as f:
         prof = json.load(f)
     assert prof["store_reused_stage1"] is reused
-    assert prof["store_scans_loaded_locally"] == (0 if reused else 8)
+    assert prof["store_scans_loaded_locally"] == (0 if reused else 5)
     _, T_fused = EurocDataset(d).read_trajectory("/robot0/SLAM/solution_graphslam.csv")
     assert cli.main(["graph"] + argv) == 0
     with open(prof_path) as f:
@@ -185,9 +191,9 @@ def test_keyframe_store_matches_reference(stage1, reference_kernels):
     times = EurocDataset(d).read_csv("/robot0/lidar/data.csv")["#timestamp [ns]"]
     cfg_ref = IcpConfigRef(**CFG)
     ref = StoreRef(d, times, method="icppointplane", cfg=cfg_ref)
-    ref.load_and_preprocess(keyframe_sampling=4)
+    ref.load_and_preprocess(keyframe_sampling=2)
     got = KeyframeStore(d, times, cfg=IcpConfig(**CFG), device="cpu")
-    got.load_and_preprocess(keyframe_sampling=4)
+    got.load_and_preprocess(keyframe_sampling=2)
     assert len(got) == len(ref) == 10
     np.testing.assert_array_equal(got.points.numpy(), np.asarray(ref.points))
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
@@ -199,7 +205,7 @@ def test_keyframe_store_matches_reference(stage1, reference_kernels):
     port = KeyframeStore.from_arrays(*(torch.from_numpy(np.array(a)) for a in
                                        (ref.points, ref.mask, ref.normals)),
                                      cfg=IcpConfig(**CFG))
-    T_gt = info["T_gt"][::4]
+    T_gt = info["T_gt"][::2]
     pairs = np.array([[0, 1], [1, 2], [9, 0], [5, 4]])
     seeds = np.stack([np.linalg.inv(T_gt[i]) @ T_gt[j] @ synthetic._yaw_T(
         0.05, -0.03, 0.01) for i, j in pairs]).astype(np.float32)
@@ -214,11 +220,11 @@ def test_keyframe_store_matches_reference(stage1, reference_kernels):
 def _circle_graphs(T0_gps=None):
     """A drifted 40-pose circle (tests/test_loopclosing.py's) in both
     packages."""
-    T_gt = synthetic.make_trajectory(N_SCANS, radius=6.0)
+    T_gt = synthetic.make_trajectory(N_POSES, radius=6.0)
     g = PoseGraphRef(max_poses=64, max_between=512, max_gps=64, T0_gps=T0_gps)
     g.init_graph()
     drift = synthetic._yaw_T(0.01, 0.0, 0.003)
-    for i in range(N_SCANS - 1):
+    for i in range(N_POSES - 1):
         rel = np.linalg.inv(T_gt[i]) @ T_gt[i + 1] @ drift
         g.add_initial_estimate(rel, i + 1)
         g.add_edge(rel, i, i + 1, "SM")
@@ -240,11 +246,11 @@ def _fake_icp(pairs, seeds):
 
 def _closers(T0_gps=None):
     g, p = _circle_graphs(T0_gps)
-    dummy = np.zeros((N_SCANS, 8, 3), np.float32)
-    s_ref = StoreRef.from_arrays(jnp.asarray(dummy), jnp.ones((N_SCANS, 8), bool),
+    dummy = np.zeros((N_POSES, 8, 3), np.float32)
+    s_ref = StoreRef.from_arrays(jnp.asarray(dummy), jnp.ones((N_POSES, 8), bool),
                                  jnp.asarray(dummy))
     s = KeyframeStore.from_arrays(torch.from_numpy(dummy),
-                                  torch.ones(N_SCANS, 8, dtype=torch.bool),
+                                  torch.ones(N_POSES, 8, dtype=torch.bool),
                                   torch.from_numpy(dummy))
     s_ref.compute_transformations_batch = _fake_icp
     s.compute_transformations_batch = _fake_icp
